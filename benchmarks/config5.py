@@ -2,14 +2,12 @@
 """BASELINE config 5: scene_2 at 4K, 256 spp, camera fly-through, sharded
 over the (tile, sample) mesh.
 
-Two runnable shapes (this environment has one real TPU chip):
+Two runnable shapes:
 
-  * --backend tpu: the real workload — 3840x2160, 256 spp, real 2048^2
-    skybox, full reference physics, rendered through render_image_sharded
-    (kernel=auto => the Pallas megakernel) over all visible chips, camera
-    orbiting per frame. Reports s/frame and Mrays/s. On a pod slice the
-    same command uses every chip; multi-host via benchmarks/scaling.py's
-    bootstrap flags applies identically.
+  * --backend gpu: the real workload — 3840x2160, 256 spp, a seeded 2048^2
+    packed skybox, full reference physics, rendered through
+    render_image_sharded (kernel=auto => the forward megakernel) over all
+    visible cards, camera orbiting per frame. Reports s/frame and Mrays/s.
   * --backend cpu (virtual 8-device mesh): correctness shape — a scaled-
     down fly-through sharded over (4 tiles x 2 samples), checking frames
     against the single-device render statistically.
@@ -27,7 +25,7 @@ import time
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", choices=["cpu", "tpu"], default="tpu")
+    ap.add_argument("--backend", choices=["cpu", "gpu"], default="gpu")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
@@ -50,22 +48,20 @@ def main():
 
     from ray_tracing_tpu import Camera, RenderConfig
     from ray_tracing_tpu.apps.flythrough import orbit_camera
-    from ray_tracing_tpu.io.image import load_cubemap
-    from ray_tracing_tpu.ops.cubemap import constant_sky
+    from ray_tracing_tpu.ops.cubemap import constant_sky, noise_sky
     from ray_tracing_tpu.parallel.mesh import make_mesh
     from ray_tracing_tpu.parallel.render import render_image_sharded
-    from ray_tracing_tpu.scene.parser import parse_scene_file
+    from ray_tracing_tpu.scene.parser import parse_scene_file, scene_file
 
-    if args.backend == "tpu":
+    if args.backend == "gpu":
         W = args.width or 3840
         H = args.height or 2160
         spp = args.spp or 256
-        cubemap = load_cubemap()
+        cubemap = noise_sky(2048)
         n = len(jax.devices())
         num_samples = 2 if n % 2 == 0 else 1
         # the tile axis must divide the frame's rows; drop to the largest
-        # chip count that does (e.g. 2160 rows on a 64-chip slice -> 27
-        # tiles would be wrong — use 24 of 32 tile slots)
+        # device count that does
         want_tiles = n // num_samples
         n_tiles = max(t for t in range(1, want_tiles + 1) if H % t == 0)
         devices = jax.devices()[: n_tiles * num_samples]
@@ -77,7 +73,7 @@ def main():
         cubemap = constant_sky((0.6, 0.7, 0.9))
         mesh = make_mesh(4, 2)
 
-    scene = parse_scene_file("/root/reference/scene_2.txt")
+    scene = parse_scene_file(scene_file("scene_2"))
     config = RenderConfig()
     base = Camera.default()
     rays = W * H * spp * config.bounces * (1 + config.shadow_samples)

@@ -1,25 +1,24 @@
 #!/usr/bin/env python
-"""Scaling-efficiency harness (BASELINE.md target: >=85% rays/s going
-1 chip -> 1 host -> N>=2 hosts).
+"""Scaling-efficiency harness: rays/s going 1 card -> 1 host -> N hosts.
 
 Strong scaling over the (tile, sample) mesh: a FIXED total workload
 (W x H x spp, full reference physics) is sharded over n devices;
-efficiency(n) = t(1) / (n * t(n)) on real chips.
+efficiency(n) = t(1) / (n * t(n)) on real cards.
 
 Three environments, same code path (render_image_sharded / make_train_step):
 
-  * --backend cpu (default off-TPU): n VIRTUAL devices on one core
+  * --backend cpu (the default): n VIRTUAL devices on one core
     (xla_force_host_platform_device_count). All shards run sequentially on
     one physical core, so ideal t(n) == t(1); reported "overhead" =
     t(n)/t(1) - 1 measures everything sharding adds (shard_map partitioning,
     psums, per-device dispatch). This is the trend the judge can run
     anywhere, and what CI pins.
-  * --backend tpu on a single chip: mesh (1,1) vs unsharded quantifies the
+  * --backend gpu on a single card: mesh (1,1) vs unsharded quantifies the
     sharding wrapper's cost on real hardware.
-  * --backend tpu on a pod slice (N chips visible, optionally multi-host
-    via parallel/distributed.initialize): true strong-scaling efficiency.
-    Ready to run: `python benchmarks/scaling.py --backend tpu` picks up
-    every visible chip; multi-host adds --coordinator/--num-hosts/--host-id.
+  * --backend gpu with N cards visible (optionally multi-host via
+    parallel/distributed.initialize): true strong-scaling efficiency.
+    `python benchmarks/scaling.py --backend gpu` picks up every visible
+    card; multi-host adds --coordinator/--num-hosts/--host-id.
 
 Output: one JSON line per mesh size + a summary line.
 """
@@ -33,13 +32,14 @@ import time
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", choices=["cpu", "tpu"], default="cpu")
+    ap.add_argument("--backend", choices=["cpu", "gpu"], default="cpu")
     ap.add_argument("--devices", default=None,
-                    help="comma list of mesh sizes (default: 1,2,4,8 cpu / all tpu)")
+                    help="comma list of mesh sizes (default: 1,2,4,8 cpu / all gpu)")
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--height", type=int, default=384)
     ap.add_argument("--spp", type=int, default=8)
-    ap.add_argument("--scene", default="/root/reference/scene_2.txt")
+    ap.add_argument("--scene", default=None,
+                    help="scene file (default: the in-repo scene_2)")
     ap.add_argument("--train", action="store_true",
                     help="also time the sharded train step (fwd+bwd+psum)")
     ap.add_argument("--coordinator", default=None)
@@ -69,7 +69,7 @@ def main():
     from ray_tracing_tpu.parallel.distributed import initialize
     from ray_tracing_tpu.parallel.mesh import make_mesh
     from ray_tracing_tpu.parallel.render import render_image_sharded
-    from ray_tracing_tpu.scene.parser import parse_scene_file
+    from ray_tracing_tpu.scene.parser import parse_scene_file, scene_file
 
     initialize(args.coordinator, args.num_hosts, args.host_id)
 
@@ -82,7 +82,7 @@ def main():
         sizes = sorted({1, 2, len(devices)} & set(range(1, len(devices) + 1)))
     sizes = [n for n in sizes if n <= len(devices)]
 
-    scene = parse_scene_file(args.scene)
+    scene = parse_scene_file(args.scene or scene_file("scene_2"))
     cam = Camera.default()
     config = RenderConfig()  # full reference physics
     sky = constant_sky((0.6, 0.7, 0.9))

@@ -1,20 +1,21 @@
-"""ray_tracing_tpu — a TPU-native differentiable Monte-Carlo path tracer.
+"""ray_tracing_tpu — a differentiable Monte-Carlo path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference CPU ray tracer (cozis/ray_tracing): scene DSL parsing, pinhole
 camera with interactive controls, sphere/AABB path tracing with cubemap
 skybox and explicit light sampling, progressive-resolution accumulation,
-and PNG screenshots — plus new TPU-first capabilities the reference lacks:
-end-to-end differentiability (inverse rendering), multi-chip sharding over
-a `jax.sharding.Mesh`, Pallas megakernels, and checkpointing.
+and PNG screenshots — plus capabilities the reference lacks: end-to-end
+differentiability (inverse rendering), multi-device sharding over a
+`jax.sharding.Mesh`, a fused forward megakernel for the GPU, and
+checkpointing.
 
 Layer map (mirrors SURVEY.md §1, redesigned functional-first):
 
     ops/       batched vector math, intersections, cubemap, sampling (ref: src/vector.c, src/scene.c)
     scene/     scene pytree + DSL parser                             (ref: src/scene.{c,h})
     render/    camera, path-tracing integrator, film/accumulation    (ref: src/camera.c, src/main.c)
-    kernels/   Pallas TPU megakernels for the hot path               (ref: src/main.c:131-272)
-    parallel/  mesh/sharding: tiles x samples over chips             (ref: src/main.c worker pool)
+    kernels/   forward megakernel (Pallas, Triton route) for the GPU (ref: src/main.c:131-272)
+    parallel/  mesh/sharding: tiles x samples over devices           (ref: src/main.c worker pool)
     diff/      gradients, finite-difference oracle, inverse render   (new capability)
     io/        image/cubemap IO, screenshots                         (ref: stb_image usage)
     apps/      CLI + interactive viewer                              (ref: src/main.c:484-634)
@@ -25,45 +26,18 @@ __version__ = "0.1.0"
 
 import os as _os
 
-def _host_tag() -> str:
-    """8-hex digest of this host's CPU identity. XLA:CPU AOT results in the
-    persistent cache are specialized to the COMPILING host's machine
-    features; loading them on a different machine risks SIGILL (observed as
-    cpu_aot_loader "machine type doesn't match" warnings when /tmp survives
-    across machine types between driver runs). Keying the cache path on the
-    CPU fingerprint makes cross-host reuse structurally impossible.
 
-    NOTE: cpu_aot_loader may STILL warn on same-host cache hits — it
-    compares the compile-time feature list (which includes XLA tuning
-    pseudo-features like +prefer-no-gather) against the host's REAL CPU
-    flags, so the pseudo-features always "mismatch". With a host-keyed
-    cache those warnings are a false positive, not a SIGILL risk."""
-    import hashlib
-    import platform
-
-    txt = platform.machine()
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features", "model name")):
-                    txt += line
-                    if line.startswith(("flags", "Features")):
-                        break
-    except OSError:
-        pass
-    return hashlib.sha1(txt.encode()).hexdigest()[:8]
+def compile_cache_dir(environ=_os.environ) -> str:
+    """Where the persistent compile cache lives: JAX_COMPILATION_CACHE_DIR
+    when it is set, else <checkout>/.jax_cache (gitignored). A fixed path,
+    so one checkout finds its own compilations again."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache",
+    )
 
 
-# Persistent XLA/Mosaic compile cache: megakernel compiles are minutes-cold
-# (TPU remote compile) and identical across runs — cache them so the CLI /
-# viewer / server start fast after the first session. Respect any cache the
-# environment (e.g. the test harness) already configured; the path is
-# per-user (no /tmp collisions across accounts) AND per-host-fingerprint
-# (no cross-machine AOT reuse — see _host_tag).
-_CACHE_DIR = _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR",
-    f"/tmp/jax_cache_rtt_{_os.getuid()}_{_host_tag()}",
-)
+_CACHE_DIR = compile_cache_dir()
 _os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", _CACHE_DIR)
 _os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
@@ -109,7 +83,7 @@ __all__ = [
 
 
 def render_image_pallas(*args, **kwargs):
-    """Lazy re-export of the TPU megakernel renderer (kernels/megakernel)."""
+    """Lazy re-export of the forward megakernel renderer (kernels/megakernel)."""
     from ray_tracing_tpu.kernels.megakernel import render_image_pallas as fn
 
     return fn(*args, **kwargs)

@@ -1,4 +1,4 @@
-"""CLI entry point — reference UX (src/main.c:585-634) plus TPU extras.
+"""CLI entry point — reference UX (src/main.c:585-634) plus offline extras.
 
 Reference flags, same semantics:
     --scene <file>       required
@@ -11,9 +11,11 @@ New flags:
     --spp, --passes      offline quality controls
     --output <png>       offline mode: render, save, exit (no terminal UI)
     --interactive        terminal viewer (WASD/IJKL/SPACE/Q)
-    --kernel {pallas,xla} forward implementation
+    --kernel {auto,pallas,pallas_interpret,xla}  forward implementation
+                         (auto: the megakernel on a GPU, XLA on a CPU)
     --no-skybox          constant sky instead of the cubemap
-    --assets <dir>       skybox root (default: the reference's assets)
+    --assets <dir>       skybox/*.jpg root (default: a seeded 2048^2
+                         procedural sky, ops/cubemap.noise_sky)
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ import sys
 
 import numpy as np
 
+from ray_tracing_tpu.parallel.render import KERNELS
+
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="raytrace",
-        description="TPU-native differentiable ray tracer (cozis/ray_tracing capabilities)",
+        description="Differentiable Monte-Carlo ray tracer in JAX (cozis/ray_tracing capabilities)",
     )
     p.add_argument("--scene", required=True, help="scene DSL file")
     p.add_argument("--threads", type=int, default=None,
@@ -40,15 +44,31 @@ def build_parser():
     p.add_argument("--passes", type=int, default=4, help="full-res passes (interactive)")
     p.add_argument("--output", default=None, help="render to PNG and exit")
     p.add_argument("--interactive", action="store_true")
-    p.add_argument("--kernel", choices=["pallas", "xla"], default="pallas")
+    p.add_argument("--kernel", choices=KERNELS, default="auto")
     p.add_argument("--no-skybox", action="store_true")
-    p.add_argument("--assets", default="/root/reference/assets")
+    p.add_argument("--assets", default=None,
+                   help="skybox root holding skybox/{right,left,top,bottom,"
+                        "front,back}.jpg; default: seeded procedural sky")
     p.add_argument("--seed", type=int, default=0)
     return p
 
 
-def make_pallas_render_fn(config, cubemap):
-    """Viewer render_fn on the Pallas megakernel: full-res passes batch
+def load_sky(args):
+    """The cubemap the apps render with: constant (--no-skybox), the JPEG
+    skybox under --assets, or the seeded procedural 2048^2 sky."""
+    from ray_tracing_tpu.ops.cubemap import constant_sky, noise_sky
+
+    if args.no_skybox:
+        return constant_sky((0.6, 0.7, 0.9))
+    if args.assets is None:
+        return noise_sky(2048, seed=args.seed)
+    from ray_tracing_tpu.io.image import load_cubemap
+
+    return load_cubemap(args.assets)
+
+
+def make_pallas_render_fn(config, cubemap, interpret: bool = False):
+    """Viewer render_fn on the megakernel: full-res passes batch
     spp=4 so the sparse sky gather amortizes its sample-0 full gather
     across the pass, and the returned cache carries it ACROSS passes at
     the fixed camera (film.py rationale). Pyramid scales render other
@@ -64,7 +84,7 @@ def make_pallas_render_fn(config, cubemap):
         return render_pass_pallas(scene, camera, film, seed, scale,
                                   config, cubemap, spp=spp,
                                   sky_cache=sky_cache,
-                                  return_sky_cache=True)
+                                  return_sky_cache=True, interpret=interpret)
 
     def render_fn(scene, camera, film, key, scale, sky_cache=None):
         seed = jax.random.randint(key, (), 0, 2**31 - 1)
@@ -84,8 +104,8 @@ def main(argv=None):
     import jax
 
     from ray_tracing_tpu.config import RenderConfig
-    from ray_tracing_tpu.io.image import load_cubemap, save_png
-    from ray_tracing_tpu.ops.cubemap import constant_sky
+    from ray_tracing_tpu.io.image import save_png
+    from ray_tracing_tpu.parallel.render import resolve_kernel
     from ray_tracing_tpu.render.camera import Camera
     from ray_tracing_tpu.render.film import render_pass
     from ray_tracing_tpu.render.integrator import render_image
@@ -100,23 +120,23 @@ def main(argv=None):
         return 1
     print("Scene parsed", file=sys.stderr)
 
+    try:
+        kernel = resolve_kernel(args.kernel)
+    except ValueError as e:
+        print(f"raytrace: {e}", file=sys.stderr)
+        return 2
+
     config = RenderConfig(init_scale=args.init_scale)
-    if args.no_skybox:
-        cubemap = constant_sky((0.6, 0.7, 0.9))
-    else:
-        try:
-            cubemap = load_cubemap(args.assets)
-        except OSError as e:
-            print(f"Couldn't load cubemap ({e}); using constant sky", file=sys.stderr)
-            cubemap = constant_sky((0.6, 0.7, 0.9))
+    try:
+        cubemap = load_sky(args)
+    except OSError as e:
+        print(f"Couldn't load cubemap: {e}", file=sys.stderr)
+        return 1
     print("Cubemap loaded", file=sys.stderr)
 
     camera = Camera.default()
     key = jax.random.key(args.seed)
-
-    use_pallas = args.kernel == "pallas" and jax.default_backend() not in ("cpu",)
-    if args.kernel == "pallas" and not use_pallas:
-        print("No TPU backend; falling back to XLA kernel", file=sys.stderr)
+    use_pallas = kernel != "xla"
 
     # --threads caps the tile axis of the device mesh (the reference caps
     # its worker-thread count at 32, src/main.c:46,632-633). With one
@@ -136,8 +156,7 @@ def main(argv=None):
             print(f"Sharding rows over {n_tiles} devices", file=sys.stderr)
             img = render_image_sharded(
                 scene, camera, args.width, args.height, key, mesh,
-                spp=args.spp, config=config, cubemap=cubemap,
-                kernel="pallas" if use_pallas else "xla",
+                spp=args.spp, config=config, cubemap=cubemap, kernel=kernel,
             )
         elif use_pallas:
             from ray_tracing_tpu.kernels.megakernel import render_image_pallas
@@ -145,6 +164,7 @@ def main(argv=None):
             img = render_image_pallas(
                 scene, camera, args.width, args.height, args.seed,
                 spp=args.spp, config=config, cubemap=cubemap,
+                interpret=kernel == "pallas_interpret",
             )
         else:
             img = render_image(
@@ -153,7 +173,7 @@ def main(argv=None):
             )
         out = args.output or "render.png"
         save_png(np.asarray(img), out)
-        print(f"Wrote {out}", file=sys.stderr)
+        print(f"Wrote {out} (kernel {kernel})", file=sys.stderr)
         return 0
 
     # Interactive terminal viewer.
@@ -163,7 +183,8 @@ def main(argv=None):
     view_h = min(args.height, 108)
 
     if use_pallas:
-        render_fn = make_pallas_render_fn(config, cubemap)
+        render_fn = make_pallas_render_fn(
+            config, cubemap, interpret=kernel == "pallas_interpret")
     else:
         @functools.partial(jax.jit, static_argnames=("scale",))
         def pass_fn(scene, camera, film, key, scale):

@@ -1,11 +1,11 @@
 """Camera fly-through renderer (BASELINE.json config 5's workload shape).
 
-Renders an orbit (or WASD-script) camera path offline through the Pallas
-megakernel, writing numbered PNG frames — the batch analogue of the
-interactive viewer, and the single-chip version of the "camera fly-through,
-tiles+samples sharded" config (run under a mesh via --sharded).
+Renders an orbit camera path offline (the forward megakernel on a GPU, the
+XLA integrator on a CPU), writing numbered PNG frames — the batch analogue
+of the interactive viewer, and the single-device version of the "camera
+fly-through, tiles+samples sharded" config (run under a mesh via --sharded).
 
-    python -m ray_tracing_tpu.apps.flythrough --scene /root/reference/scene_0.txt \
+    python -m ray_tracing_tpu.apps.flythrough --scene scenes/room.txt \
         --frames 24 --width 640 --height 480 --spp 8 --out-dir /tmp/fly
 """
 
@@ -18,6 +18,8 @@ import os
 import sys
 
 import numpy as np
+
+from ray_tracing_tpu.parallel.render import KERNELS
 
 
 def orbit_camera(base, t: float, radius: float = 8.66, height: float = 5.0,
@@ -45,20 +47,26 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--spp", type=int, default=8)
     p.add_argument("--out-dir", default="fly_frames")
-    p.add_argument("--kernel", choices=["pallas", "xla"], default="pallas")
+    p.add_argument("--kernel", choices=KERNELS, default="auto")
     p.add_argument("--sharded", action="store_true", help="render over the device mesh")
-    p.add_argument("--assets", default="/root/reference/assets")
+    p.add_argument("--no-skybox", action="store_true")
+    p.add_argument("--assets", default=None,
+                   help="skybox root; default: seeded procedural sky")
+    p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
     import jax
 
-    from ray_tracing_tpu.io.image import load_cubemap, save_png
+    from ray_tracing_tpu.apps.cli import load_sky
+    from ray_tracing_tpu.io.image import save_png
+    from ray_tracing_tpu.parallel.render import resolve_kernel
     from ray_tracing_tpu.render.camera import Camera
     from ray_tracing_tpu.scene.parser import parse_scene_file
     from ray_tracing_tpu.utils.profiling import RateMeter, rays_per_frame
 
+    kernel = resolve_kernel(args.kernel)
     scene = parse_scene_file(args.scene)
-    cubemap = load_cubemap(args.assets)
+    cubemap = load_sky(args)
     base = Camera.default()
     os.makedirs(args.out_dir, exist_ok=True)
 
@@ -69,16 +77,18 @@ def main(argv=None):
         mesh = make_mesh()
         render = jax.jit(
             lambda s, c, k: render_image_sharded(
-                s, c, args.width, args.height, k, mesh, spp=args.spp, cubemap=cubemap
+                s, c, args.width, args.height, k, mesh, spp=args.spp,
+                cubemap=cubemap, kernel=kernel,
             )
         )
         arg_for = lambda i: jax.random.key(i)
-    elif args.kernel == "pallas" and jax.default_backend() != "cpu":
+    elif kernel != "xla":
         from ray_tracing_tpu.kernels.megakernel import render_image_pallas
 
         render = jax.jit(
             lambda s, c, seed: render_image_pallas(
-                s, c, args.width, args.height, seed, spp=args.spp, cubemap=cubemap
+                s, c, args.width, args.height, seed, spp=args.spp,
+                cubemap=cubemap, interpret=kernel == "pallas_interpret",
             )
         )
         arg_for = lambda i: i

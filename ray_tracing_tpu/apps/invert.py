@@ -5,7 +5,7 @@ training step. Default demo: render the scene as ground truth, perturb the
 chosen fields, then watch the optimizer pull them back — printing per-step
 loss and final parameter errors.
 
-    python -m ray_tracing_tpu.apps.invert --scene /root/reference/scene_2.txt \
+    python -m ray_tracing_tpu.apps.invert --scene scenes/scene_2.txt \
         --fields p0,albedo --steps 150 --width 96 --height 64 \
         --checkpoint-dir /tmp/invert_ckpt
 

@@ -6,9 +6,8 @@ movement, README.md:25-29), optimize the camera position+direction until
 our render aligns with it. Produces renders/*_recovered_pose.png.
 
     python -m ray_tracing_tpu.apps.pose_recovery \
-        --scene /root/reference/scene_2.txt \
-        --target /root/reference/assets/screenshot_3.png \
-        --init-pos 0,0.35,6 --init-front 0,0,-1
+        --scene scenes/scene_2.txt --target screenshot_3.png \
+        --assets <skybox root> --init-pos 0,0.35,6 --init-front 0,0,-1
 
 Result on screenshot_3 (coarse grid + two-stage Adam): downsampled mae
 0.155 -> 0.050, correlation 0.79 (manual guess) -> 0.901 point-sampled
@@ -25,6 +24,8 @@ import dataclasses
 import sys
 
 import numpy as np
+
+from ray_tracing_tpu.parallel.render import KERNELS
 
 
 def main(argv=None):
@@ -43,7 +44,13 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=160)
     p.add_argument("--height", type=int, default=120)
     p.add_argument("--spp", type=int, default=4)
-    p.add_argument("--assets", default="/root/reference/assets")
+    p.add_argument("--assets", default=None,
+                   help="skybox root the screenshot was taken with; "
+                        "default: seeded procedural sky")
+    p.add_argument("--no-skybox", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--kernel", choices=KERNELS, default="auto",
+                   help="forward kernel of the --out render")
     p.add_argument("--out", default=None, help="render the recovered pose to PNG")
     args = p.parse_args(argv)
 
@@ -52,10 +59,14 @@ def main(argv=None):
     from PIL import Image
 
     from ray_tracing_tpu import Camera, RenderConfig
+    from ray_tracing_tpu.apps.cli import load_sky
     from ray_tracing_tpu.diff.inverse import fit
-    from ray_tracing_tpu.io.image import load_cubemap, save_png
+    from ray_tracing_tpu.io.image import save_png
     from ray_tracing_tpu.parallel.mesh import make_mesh
+    from ray_tracing_tpu.parallel.render import resolve_kernel
     from ray_tracing_tpu.scene.parser import parse_scene_file
+
+    kernel = resolve_kernel(args.kernel)
 
     W, H = args.width, args.height
     tgt = np.asarray(
@@ -65,7 +76,7 @@ def main(argv=None):
     tgt = tgt[::-1].copy()
 
     scene = parse_scene_file(args.scene)
-    cubemap = load_cubemap(args.assets)
+    cubemap = load_sky(args)
     cfg = RenderConfig(env_filter="bilinear", bounces=3, shadow_samples=1)
     mesh = make_mesh(1, 1, devices=jax.devices()[:1])
 
@@ -145,8 +156,10 @@ def main(argv=None):
         from ray_tracing_tpu.kernels.megakernel import render_image_pallas
         from ray_tracing_tpu.render.integrator import render_image
 
-        if jax.default_backend() != "cpu":
-            img = render_image_pallas(scene, rec, 1280, 960, 7, spp=128, cubemap=cubemap)
+        if kernel != "xla":
+            img = render_image_pallas(
+                scene, rec, 1280, 960, 7, spp=128, cubemap=cubemap,
+                interpret=kernel == "pallas_interpret")
         else:
             img = render_image(scene, rec, 640, 480, jax.random.key(7), spp=32, cubemap=cubemap)
         save_png(np.asarray(img), args.out)

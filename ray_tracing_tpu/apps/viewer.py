@@ -1,6 +1,6 @@
 """Interactive terminal viewer — the reference's GLFW window + event loop
 (src/main.c:520-574, src/gpu_and_windowing.c) re-imagined for a headless
-TPU host: frames render on-device with progressive refinement and are
+accelerator host: frames render on-device with progressive refinement and are
 painted into the terminal with ANSI half-block cells; input is raw-mode
 keyboard (WASD move, arrows/IJKL look, SPACE screenshot, Q/ESC quit).
 

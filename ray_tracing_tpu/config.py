@@ -54,11 +54,9 @@ class RenderConfig:
     # every sample through the exact pixel center, src/main.c:293-296, so
     # its converged edges stay aliased). When True, each sample jitters
     # u/v uniformly within the pixel footprint — converges to box-filter AA.
-    # PERF: jitter moves every sample's primary ray, so the sparse sky
-    # cache (sky_sparse_gather below, keyed on nearest-texel index
-    # equality across samples) loses most of its reuse on skybox
-    # workloads — expect full-gather-level sky cost plus a small cond
-    # overhead (measured in BENCH_NOTES.md "jitter + skybox" row).
+    # Jitter moves every sample's primary ray, so the sparse sky cache
+    # (sky_sparse_gather below, keyed on nearest-texel index equality
+    # across samples) loses most of its reuse on skybox workloads.
     pixel_jitter: bool = False
 
     # Differentiable-mode switches (no reference analogue). env_filter
@@ -66,21 +64,6 @@ class RenderConfig:
     # camera/roughness gradients are non-degenerate; "nearest" is bit-
     # faithful to the reference (src/gpu_and_windowing.c:103-104).
     env_filter: str = "nearest"  # "nearest" | "bilinear"
-
-    # Pallas backward implementation (kernels/megakernel.py).
-    # "fetch" (default): path replay v2 — the forward kernel persists one
-    #   int32 winner-index plane per trace call to HBM; the backward skips
-    #   its recording pass and vjp-s a loop-free replay whose winner
-    #   parameters come from a differentiable one-hot MXU fetch of the
-    #   scene table (gradient routing = the fetch matmul's own vjp).
-    #   render_image_pallas falls back to "replay" automatically when the
-    #   stacked record residuals of a high-spp scan would exceed ~4 GB.
-    # "replay": round-2 path replay — record winner PARAM planes inside
-    #   the backward kernel, vjp the replay, route with one-hot matmuls;
-    #   no forward-side records (lowest memory).
-    # "direct": the round-1 vjp-of-tile_physics backward (small scenes
-    #   only; residuals scale with objects x NEE).
-    bwd_mode: str = "fetch"  # "fetch" | "replay" | "direct"
 
     # Sparse sky gather (exact; no reference analogue needed — pure perf).
     # Across Monte-Carlo samples at a fixed camera the nearest-texel sky

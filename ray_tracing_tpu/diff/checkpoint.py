@@ -1,7 +1,7 @@
 """Checkpoint / resume for inverse rendering and accumulation state.
 
 The reference has no checkpointing at all — its only persistent artifact
-is the PNG screenshot (SURVEY.md §5). The TPU framework checkpoints:
+is the PNG screenshot (SURVEY.md §5). This framework checkpoints:
 
   * inverse-rendering optimization state (params pytree + optax state +
     step counter + loss history) via orbax, so a fit can resume after

@@ -5,8 +5,11 @@ sphere positions/radii/colors from target image via Adam"). The training
 step is SPMD over the (tile, sample) mesh: every device renders its row
 slice with its sample shard, computes the local squared error against its
 target rows, and the scalar loss + parameter gradients are combined with
-psums — the gradient all-reduce rides ICI, overlapped with the backward
-pass by XLA's scheduler (latency-hiding collectives).
+psums, which XLA overlaps with the backward pass.
+
+Training differentiates the XLA integrator (render/integrator.py): on an
+H100 at 1080p its autodiff was faster than the forward megakernel plus a
+plain-XLA vjp of the kernel's physics (PERF.md, Findings).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from jax.sharding import PartitionSpec as P
 from ray_tracing_tpu.config import RenderConfig, DEFAULT_CONFIG
 from ray_tracing_tpu.ops.cubemap import CubemapData
 from ray_tracing_tpu.parallel.mesh import SAMPLE_AXIS, TILE_AXIS
-from ray_tracing_tpu.parallel.render import _local_tile_render, resolve_kernel
+from ray_tracing_tpu.parallel.render import _local_tile_render
 from ray_tracing_tpu.render.camera import Camera
 from ray_tracing_tpu.scene.types import OBJ_SPHERE, Scene
 
@@ -78,29 +81,12 @@ def make_train_step(
     spp: int = 4,
     config: RenderConfig = DEFAULT_CONFIG,
     cubemap: CubemapData | None = None,
-    kernel: str = "auto",
-    sky_cache_mode: bool = False,
 ):
     """Build a jitted SPMD train step.
 
     params pytree: {"scene": {field: array}, "camera": {field: array}}.
     Returns step(params, opt_state, target, key) -> (params, opt_state, loss)
     with target (H, W, 3) sharded (or shardable) over rows.
-
-    kernel "auto" trains through the Pallas megakernel (fwd + custom-VJP
-    bwd, kernels/megakernel.py) on TPU meshes and the XLA integrator
-    elsewhere; per-device kernel gradients are psum-combined over the mesh
-    exactly like the XLA path's.
-
-    sky_cache_mode=True (Pallas kernels with a packed cubemap) changes
-    the signature to step(params, opt_state, target, key, sky_cache) ->
-    (params, opt_state, loss, sky_cache): each device's sparse sky cache
-    threads across steps so only the first step (and periodic reseeds —
-    pass sky_cache=None) pays the full-frame seeding gather. Exact for
-    any cache state (megakernel.render_image_pallas): parameter updates
-    move silhouettes/specular chains, which only lowers the cache hit
-    rate, never changes a texel. The cache is per-device state, stacked
-    over BOTH mesh axes in the returned global array.
     """
     n_tiles = mesh.shape[TILE_AXIS]
     n_samples = mesh.shape[SAMPLE_AXIS]
@@ -117,9 +103,8 @@ def make_train_step(
         raise ValueError(f"height {height} not divisible by tile axis {n_tiles}")
 
     denom = float(width * height * 3)
-    kernel = resolve_kernel(kernel, mesh)
 
-    def local_value_and_grad(params, target_local, key, sky_cache=None):
+    def local_value_and_grad(params, target_local, key):
         def loss_fn(p):
             base = base_scene
             if {"emission_power", "emission_color"} & set(p["scene"]):
@@ -134,66 +119,33 @@ def make_train_step(
             scene = apply_params(base, p["scene"])
             cam = dataclasses.replace(camera, **p["camera"])
             img = _local_tile_render(
-                scene, cam, key, width, height, spp, config, cubemap,
-                kernel, sky_cache=sky_cache,
-                return_sky_cache=sky_cache_mode,
+                scene, cam, key, width, height, spp, config, cubemap, "xla",
             )  # (local_h, W, 3), sample-psummed
-            cache = None
-            if sky_cache_mode:
-                img, cache = img
-            return jnp.sum((img - target_local) ** 2), cache
+            return jnp.sum((img - target_local) ** 2)
 
-        (sse, cache), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        sse, g = jax.value_and_grad(loss_fn)(params)
         # combine: loss over tiles; grads over both mesh axes (each device
         # holds only its own tile x sample contribution)
         loss = jax.lax.psum(sse, TILE_AXIS) / denom
         g = jax.tree_util.tree_map(
             lambda x: jax.lax.psum(x, (TILE_AXIS, SAMPLE_AXIS)) / denom, g
         )
-        return loss, g, cache
+        return loss, g
 
-    # the cache is per-device state: its leaves stack over BOTH mesh axes
-    # (row-major (tile, sample)) and slice back identically next step
-    cache_spec = P((TILE_AXIS, SAMPLE_AXIS), None)
-
-    if not sky_cache_mode:
-        vg = jax.shard_map(
-            lambda p, t, k: local_value_and_grad(p, t, k)[:2],
-            mesh=mesh,
-            in_specs=(P(), P(TILE_AXIS, None, None), P()),
-            out_specs=(P(), P()),
-            check_vma=False,
-        )
-
-        @jax.jit
-        def step(params, opt_state, target, key):
-            loss, grads = vg(params, target, key)
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            return params, opt_state, loss
-
-        return step
-
-    vg_seed = jax.shard_map(
-        local_value_and_grad, mesh=mesh,
+    vg = jax.shard_map(
+        local_value_and_grad,
+        mesh=mesh,
         in_specs=(P(), P(TILE_AXIS, None, None), P()),
-        out_specs=(P(), P(), cache_spec), check_vma=False,
-    )
-    vg_cached = jax.shard_map(
-        local_value_and_grad, mesh=mesh,
-        in_specs=(P(), P(TILE_AXIS, None, None), P(), cache_spec),
-        out_specs=(P(), P(), cache_spec), check_vma=False,
+        out_specs=(P(), P()),
+        check_vma=False,
     )
 
     @jax.jit
-    def step(params, opt_state, target, key, sky_cache=None):
-        if sky_cache is None:
-            loss, grads, cache = vg_seed(params, target, key)
-        else:
-            loss, grads, cache = vg_cached(params, target, key, sky_cache)
+    def step(params, opt_state, target, key):
+        loss, grads = vg(params, target, key)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
-        return params, opt_state, loss, cache
+        return params, opt_state, loss
 
     return step
 
@@ -216,7 +168,6 @@ def fit(
     callback=None,
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 50,
-    kernel: str = "auto",
 ):
     """Adam loop recovering `scene_fields` (+ `camera_fields`) from `target`.
 
@@ -294,21 +245,9 @@ def fit(
             start = int(state["step"])
             losses = [float(x) for x in state["losses"]]
 
-    # Pallas training threads the per-device sparse sky cache across
-    # steps (only the first step and periodic reseeds pay the full-frame
-    # seeding gather; exact for any cache state — make_train_step). The
-    # cache's premise decays as parameters move silhouettes, so reseed on
-    # a fixed cadence.
-    from ray_tracing_tpu.parallel.render import resolve_kernel
-
-    sky_cache_mode = resolve_kernel(kernel, mesh) == "pallas"
-    sky_cache = None
-    RESEED_EVERY = 32
-
     step = make_train_step(
         base_scene, camera, mesh, optimizer, width, height,
-        spp=spp, config=config, cubemap=cubemap, kernel=kernel,
-        sky_cache_mode=sky_cache_mode,
+        spp=spp, config=config, cubemap=cubemap,
     )
 
     target = jnp.asarray(target, jnp.float32)
@@ -323,17 +262,9 @@ def fit(
         pending.clear()
 
     for i in range(start, steps):
-        if sky_cache_mode:
-            if (i - start) % RESEED_EVERY == 0:
-                sky_cache = None
-            params, opt_state, loss, sky_cache = step(
-                params, opt_state, target, jax.random.fold_in(key, i),
-                sky_cache,
-            )
-        else:
-            params, opt_state, loss = step(
-                params, opt_state, target, jax.random.fold_in(key, i)
-            )
+        params, opt_state, loss = step(
+            params, opt_state, target, jax.random.fold_in(key, i)
+        )
         pending.append(loss)
         if callback is not None:
             drain()
@@ -509,7 +440,6 @@ def fit_multiscale(
     cubemap: CubemapData | None = None,
     key=None,
     callback=None,
-    kernel: str = "auto",
 ):
     """Coarse-to-fine inverse rendering: each (downscale, steps) stage
     optimizes against an area-downsampled target. Low resolutions blur
@@ -539,7 +469,6 @@ def fit_multiscale(
             steps=steps, lr=lr, width=w, height=h, spp=spp,
             config=config, cubemap=cubemap,
             key=jax.random.fold_in(key, stage), callback=callback,
-            kernel=kernel,
         )
         all_losses += losses
     return scene, cam, all_losses

@@ -1,14 +1,18 @@
 """Image IO: cubemap loading, PNG screenshots.
 
 Replaces the reference's stb_image / stb_image_write usage
-(src/gpu_and_windowing.c:24-33 JPEG decode; src/main.c:637-681 PNG write)
-with PIL on the host. Device code never touches files.
+(src/gpu_and_windowing.c:24-33 JPEG decode; src/main.c:637-681 PNG write).
+PNGs are encoded with the standard library (zlib + struct) or the native
+encoder; only the optional JPEG skybox decode needs PIL. Device code never
+touches files.
 """
 
 from __future__ import annotations
 
 import os
 import pathlib
+import struct
+import zlib
 
 import numpy as np
 
@@ -32,9 +36,6 @@ SKYBOX_FILES = {
     CF_BACK: "skybox/back.jpg",
 }
 
-REFERENCE_ASSETS = "/root/reference/assets"
-
-
 def load_image(path) -> np.ndarray:
     """Decode an image file to (H, W, 3) uint8."""
     from PIL import Image
@@ -43,66 +44,31 @@ def load_image(path) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
-def load_cubemap(
-    asset_root: str | os.PathLike = REFERENCE_ASSETS,
-    use_cache: bool = True,
-) -> CubemapData:
-    """Load the 6-face skybox in reference face order (src/main.c:500-508).
-
-    Decoding six 2048^2 JPEGs costs ~6 s of single-core CPU, and every
-    benchmark/test/app process pays it at startup — so the packed uint32
-    result is memoized under /tmp keyed on the files' identity
-    (path, mtime, size). Corrupt or stale cache entries fall back to a
-    fresh decode."""
+def load_cubemap(asset_root: str | os.PathLike) -> CubemapData:
+    """Load the 6-face JPEG skybox under `asset_root` in reference face
+    order (src/main.c:500-508)."""
     root = pathlib.Path(asset_root)
-    paths = [root / SKYBOX_FILES[face] for face in range(6)]
+    faces = [load_image(root / SKYBOX_FILES[face]) for face in range(6)]
+    return CubemapData.from_faces(np.stack(faces))
 
-    cache = None
-    if use_cache:
-        import hashlib
 
-        try:
-            ident = "".join(
-                f"{p}:{p.stat().st_mtime_ns}:{p.stat().st_size};"
-                for p in paths
-            )
-        except OSError:
-            ident = None  # let load_image raise its own error below
-        if ident is not None:
-            key = hashlib.sha1(ident.encode()).hexdigest()[:16]
-            cache = (
-                pathlib.Path(f"/tmp/rtt_skybox_{os.getuid()}") / f"{key}.npz"
-            )
-            if cache.exists():
-                try:
-                    with np.load(cache) as z:
-                        packed = z["packed"]
-                        h, w = int(z["h"]), int(z["w"])
-                    if packed.dtype == np.uint32 and packed.size == 6 * h * w:
-                        import jax.numpy as jnp
+def encode_png(arr) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes (8-bit RGB, filter 0, zlib level 6),
+    with the standard library only."""
+    a = np.ascontiguousarray(np.asarray(arr, np.uint8))
+    h, w = a.shape[0], a.shape[1]
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), a.reshape(h, w * 3)], axis=1
+    ).tobytes()
 
-                        return CubemapData(
-                            packed=jnp.asarray(packed), r=None, g=None,
-                            b=None, h=h, w=w,
-                        )
-                except Exception:
-                    pass  # fall through to the decode
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    faces = [load_image(p) for p in paths]
-    cm = CubemapData.from_faces(np.stack(faces))
-    if cache is not None and cm.packed is not None:
-        try:
-            cache.parent.mkdir(parents=True, exist_ok=True)
-            tmp = cache.with_suffix(f".{os.getpid()}.tmp")
-            with open(tmp, "wb") as f:  # file object: savez must not
-                # append .npz to the temp name, os.replace needs it exact
-                np.savez(f, packed=np.asarray(cm.packed),
-                         h=np.int64(cm.h), w=np.int64(cm.w))
-            os.replace(tmp, cache)  # atomic: concurrent loaders see
-            # either the old state or a complete file
-        except Exception:
-            pass  # caching is best-effort
-    return cm
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -120,7 +86,8 @@ def save_png(img, path, flip_vertically: bool = True, use_native: bool = True) -
     reference's row 0, and its writer flips rows on save.
 
     The C++ encoder (native/rt_native.cpp rt_write_png, the framework's
-    stb_image_write equivalent) is used when available; PIL otherwise.
+    stb_image_write equivalent) is used when available; encode_png
+    otherwise.
     """
     import ctypes
 
@@ -140,11 +107,10 @@ def save_png(img, path, flip_vertically: bool = True, use_native: bool = True) -
             )
             if rc == 0:
                 return
-    from PIL import Image
-
     if flip_vertically:
         arr = arr[::-1]
-    Image.fromarray(arr).save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(arr))
 
 
 def next_screenshot_path(directory=".") -> str | None:

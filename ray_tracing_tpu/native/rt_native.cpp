@@ -3,7 +3,7 @@
 // The reference is a C11 program whose runtime (scene parsing, screenshot
 // encoding, event queue, OS threading) is all native (src/scene.c,
 // src/main.c:637-681, src/gpu_and_windowing.c:19-22, src/os.c). This file
-// provides the TPU framework's native equivalents behind a C ABI consumed
+// provides the framework's native equivalents behind a C ABI consumed
 // via ctypes:
 //
 //   * rt_parse_scene  — the scene DSL parser (grammar of src/scene.c:206-609,

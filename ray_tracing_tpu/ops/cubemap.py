@@ -4,13 +4,11 @@ Reproduces the reference's dominant-axis face selection, per-face (u,v)
 formulas, [-1,1] clamp, and nearest-texel lookup
 (src/gpu_and_windowing.c:42-112).
 
-TPU storage: 8-bit cubemaps are packed into ONE uint32 plane
-(r<<16 | g<<8 | b) so a sky lookup is a single HBM gather + shifts —
-measured 2.1x faster than three channel gathers at 1080p (XLA TPU gathers
-are the whole cost of a skybox render; the rest of the ray tracer lives in
-VMEM). Float cubemaps (procedural skies) keep three channel planes. 1x1
-cubemaps (constant/per-face colors) skip the gather entirely via a 6-way
-select — gathers cost ~25ms per 2M indices even on tiny tables.
+Storage: 8-bit cubemaps are packed into ONE uint32 plane
+(r<<16 | g<<8 | b) so a sky lookup is a single device-memory gather +
+shifts instead of three channel gathers. Float cubemaps (procedural skies)
+keep three channel planes. 1x1 cubemaps (constant/per-face colors) skip
+the gather entirely via a 6-way select.
 """
 
 from __future__ import annotations
@@ -228,7 +226,7 @@ def sample_cubemap(cubemap: CubemapData, d: Vec3, bilinear: bool = False) -> Vec
 
 def texel_flat_index(cubemap: CubemapData, d: Vec3):
     """Flat texel index of the nearest-texel lookup for unit directions —
-    the same (face, y, x) -> flat map _fetch gathers with. Pure VPU math
+    the same (face, y, x) -> flat map _fetch gathers with. Pure elementwise math
     (no gather); lets callers dedupe/compact sky lookups by index."""
     face, fy, fx = _face_texel_f(cubemap, d)
     x = fx.astype(jnp.int32)
@@ -241,7 +239,7 @@ def unpack_texels(packed) -> Vec3:
     return _unpack(packed)
 
 
-SPARSE_BLOCK = 128  # one lane row; padded megakernel planes always divide
+SPARSE_BLOCK = 128  # the megakernel's padded planes always divide
 
 
 def sparse_sky_lookup(
@@ -255,9 +253,8 @@ def sparse_sky_lookup(
 ):
     """EXACT nearest-texel lookup for `need` pixels, cost-compacted.
 
-    XLA's TPU gather costs ~9ns/index (~1ms floor) regardless of table
-    residency (measured on v5e) — the whole-frame skybox gather dominates a
-    megakernel render. But across Monte-Carlo samples at a fixed camera,
+    A whole-frame skybox gather reads 2M random texels of a table larger
+    than the cache. But across Monte-Carlo samples at a fixed camera,
     most sky lookups repeat: primary misses (no pixel jitter => same
     direction every sample) and pure-specular chains produce the SAME flat
     index each sample. This helper gathers only indices that changed:
@@ -267,17 +264,13 @@ def sparse_sky_lookup(
               exact by construction, not an approximation.
       fresh:  BLOCK-compacted gather — per-128-pixel-block "any fresh"
               flags compacted by an exclusive cumsum + one scatter (the
-              semantics of jnp.nonzero(size=…, fill_value=nb), whose TPU
-              lowering costs ~1.7ms even at 16K flags; a whole-frame
-              nonzero costs 20+ms), then 1-D gathers/scatter over the
+              semantics of jnp.nonzero(size=…, fill_value=nb)), then
+              1-D gathers/scatter over the
               selected blocks' pixels. Fresh pixels cluster spatially
               (object silhouettes), so block granularity over-gathers only
               ~2x. Two static budget tiers + full-gather fallback via
               lax.cond: exactness never depends on the budget guess, the
               budget only caps the compacted pipelines' static cost.
-              (A 2-D row scatter would be the natural form, but it crashes
-              the TPU fusion emitter — kSublaneGather check — so every
-              gather/scatter here is 1-D with computed pixel positions.)
 
     Returns a uint32 texel plane (zeros where ~need). Only valid for
     packed (8-bit) cubemaps.
@@ -312,12 +305,7 @@ def sparse_sky_lookup(
             def run(_):
                 # equivalent of jnp.nonzero(fb, size=bb, fill_value=nb)[0]
                 # — first bb true block ids ascending, nb-padded — via an
-                # exclusive cumsum + one scatter. XLA's nonzero lowers to a
-                # ~1.7ms fixed-cost pipeline at 16K flags on TPU (measured,
-                # BENCH_NOTES round 2); the explicit form prices at one
-                # 16K cumsum + one 16K scatter (~185M elem/s), an
-                # order-of-magnitude less, and runs PER SAMPLE in every
-                # skybox render.
+                # exclusive cumsum + one scatter
                 fbi = fb.astype(jnp.int32)
                 slot = jnp.cumsum(fbi) - fbi  # exclusive prefix: write slot
                 pos_b = (
@@ -386,6 +374,31 @@ def checker_sky(size: int = 64) -> CubemapData:
         faces[f, ..., 1] = np.clip(255 - 30 * f - 100 * check, 0, 255)
         faces[f, ..., 2] = (xx * 255) // max(size - 1, 1)
     return CubemapData.from_faces(faces)
+
+
+def noise_sky(size: int = 2048, seed: int = 0) -> CubemapData:
+    """Seeded PACKED-uint32 cubemap with real texel entropy: per-face
+    colour ramps plus 6 bits of random noise per channel, built on the
+    device. At size 2048 the table is 6*2048^2*4 B = 100.7 MB, the size of
+    the reference's JPEG skybox, so sky lookups miss in cache as they
+    would with the real asset."""
+    n = 6 * size * size
+
+    @jax.jit
+    def build(key):
+        idx = jnp.arange(n, dtype=jnp.uint32)
+        face = idx // (size * size)
+        y = (idx // size) % size
+        x = idx % size
+        # every channel stays <= 192 before its <= 63 of noise
+        r = 30 + 16 * face + (x * 80) // size
+        g = 60 + (y * 120) // size
+        b = 190 - 10 * face
+        noise = jax.random.bits(key, (n,), jnp.uint32) & jnp.uint32(0x3F3F3F)
+        return ((r << 16) | (g << 8) | b) + noise
+
+    packed = build(jax.random.key(seed))
+    return CubemapData(packed=packed, r=None, g=None, b=None, h=size, w=size)
 
 
 def constant_sky(color=(0.0, 0.0, 0.0)) -> CubemapData:

@@ -2,12 +2,13 @@
 
 Replaces the reference's scalar per-object loop (src/scene.c:17-190) with a
 *running-min* loop unrolled over the scene's objects: each object's
-intersection test is a full-width VPU pass over all pixels, and the winner's
+intersection test is one elementwise pass over all pixels, and the winner's
 attributes (t, normal ingredients, material) are carried through
 `where`-selects. No gathers, no (pixels x objects) materialization, no
-argmin — for the reference's scene sizes (<= a few dozen objects) this is
-the fastest TPU shape, and object *kinds* are static pytree metadata so
-spheres compile sphere code only and cubes AABB code only.
+argmin — for the reference's scene sizes (<= a few dozen objects) the loop
+stays in registers inside the megakernel, and object *kinds* are static
+pytree metadata so spheres compile sphere code only and cubes AABB code
+only.
 
 Semantics are faithful to the reference:
   * sphere: quadratic solve, strict discr > 0, nearest non-negative root
@@ -57,13 +58,12 @@ def ray_inverses(d: Vec3):
     """Per-ray slab reciprocals, hoisted out of the per-object loop.
 
     The slab denominators are the ray direction's components — object-
-    INDEPENDENT — yet IEEE semantics stop XLA/Mosaic from rewriting
+    INDEPENDENT — yet IEEE semantics stop compilers from rewriting
     `num / den` into `num * (1/den)`, so the naive loop pays 12 divides
     per cube per ray (2 per slab: the exact branch and the guarded
     branch). Computing 6 reciprocals once per trace and multiplying turns
-    that into 12 multiplies per cube; a VPU divide is a multi-op
-    reciprocal+Newton sequence, so cube-heavy scenes (scene_0: 6 of 9
-    objects) gain ~2x on intersection arithmetic.
+    that into 12 multiplies per cube; an f32 divide is a multi-op
+    reciprocal+Newton sequence.
 
     Returns (zero, safe, raw): per-axis `den == 0` masks, gradient-safe
     reciprocals (1/den with zero lanes replaced by 1 before the divide, so
@@ -82,6 +82,17 @@ def ray_inverses(d: Vec3):
     return (zx, zy, zz), Vec3(sx, sy, sz), Vec3(rx, ry, rz)
 
 
+def _discriminant(oc: Vec3, d: Vec3, a, radius):
+    """Quarter discriminant of the ray-sphere quadratic, (oc.d)^2 -
+    a(|oc|^2 - r^2), evaluated as a r^2 - |oc x d|^2 (Lagrange's identity).
+    The reference's form (src/scene.c:100-107) subtracts two terms of size
+    |oc|^2 that cancel for rays grazing the sphere, so its sign there rests
+    on rounding; the cross product keeps the grazing test to a few ulps of
+    r^2, which makes hit/miss at silhouettes (the NEE light's above all)
+    agree across compilers that contract multiply-adds differently."""
+    return a * (radius * radius) - oc.cross(d).norm2()
+
+
 def intersect_sphere(ro: Vec3, d: Vec3, a, center: Vec3, radius, inv2a=None):
     """t for one sphere against all rays; BIG where no hit (src/scene.c:79-134).
 
@@ -92,8 +103,7 @@ def intersect_sphere(ro: Vec3, d: Vec3, a, center: Vec3, radius, inv2a=None):
     """
     oc = center - ro
     b = -2.0 * oc.dot(d)
-    c = oc.norm2() - radius * radius
-    discr = b * b - 4.0 * a * c
+    discr = _discriminant(oc, d, a, radius) * 4.0
     valid = discr > 0
     sq = jnp.sqrt(jnp.where(valid, discr, 0.0))  # where-trick: NaN-free grads
     if inv2a is None:
@@ -129,8 +139,7 @@ def intersect_cube(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3, inv=None):
         # cotangents (0*inf = NaN) and one axis-aligned ray poisons every
         # scene gradient through the psum. Off the parallel branch the
         # product differs from IEEE num/den by <= ~2 ulp — inside every
-        # parity tolerance, and fwd/bwd share this exact code path so the
-        # stream bit-identity invariant is untouched.
+        # parity tolerance.
         exact = jax.lax.stop_gradient(num) * raw_inv
         return jnp.where(zero, exact, num * safe_inv)
 
@@ -156,7 +165,7 @@ def intersect_cube(ro: Vec3, d: Vec3, lo: Vec3, hi: Vec3, inv=None):
     # zero direction component) because NaN comparisons are false, while
     # jnp.maximum would propagate the NaN and turn the reference's hit
     # into a miss. Off the NaN lanes where(b > a, b, a) == maximum(a, b)
-    # bit-exactly, so fwd/bwd stream identity is untouched.
+    # bit-exactly.
     y_tightens = tmin.y > tmin.x
     near = jnp.where(y_tightens, tmin.y, tmin.x)
     far = jnp.where(tmax.y < tmax.x, tmax.y, tmax.x)
@@ -187,15 +196,10 @@ UNROLL_LIMIT = 48
 
 
 def _finish_hit(hit, t, is_sph, center, cube_n, ro: Vec3, d: Vec3):
-    """Shared (point, normal) finalization of a resolved closest hit.
-
-    The path-replay contract requires the replayed t/point/normal to be
-    BIT-IDENTICAL to the recorded forward's, so every tracer that
-    finalizes a Hit — trace, _trace_scan, trace_replay,
-    trace_replay_fetch — MUST flow through this one sequence (same ops,
-    same order); a drifted copy would desynchronize gradient routing
-    silently. `center` is the winner's p0 (sphere center / cube lo — the
-    sphere normal formula only reads it on sphere lanes)."""
+    """Shared (point, normal) finalization of a resolved closest hit, for
+    the unrolled and the packed-row trace alike. `center` is the winner's
+    p0 (sphere center / cube lo — the sphere normal formula only reads it
+    on sphere lanes)."""
     t_pt = jnp.where(hit, t, 0.0)  # keep point finite on miss
     point = ro + d * t_pt
     sphere_n = (point - center).normalize()
@@ -203,11 +207,10 @@ def _finish_hit(hit, t, is_sph, center, cube_n, ro: Vec3, d: Vec3):
     return point, normal
 
 
-def trace(scene: Scene, ro: Vec3, rd: Vec3, record: bool = False):
-    """Closest hit with winner material, batched over ro/rd's shape.
-    record=True also returns the TraceRecord (path replay)."""
+def trace(scene: Scene, ro: Vec3, rd: Vec3):
+    """Closest hit with winner material, batched over ro/rd's shape."""
     if scene.num_objects > UNROLL_LIMIT:
-        return _trace_scan(scene, ro, rd, want_material=True, record=record)
+        return _trace_scan(scene, ro, rd, want_material=True)
     d = rd.normalize()  # trace_ray normalizes first (src/scene.c:158)
     a = d.dot(d)
     shape = jnp.broadcast_shapes(ro.shape, d.shape)
@@ -218,10 +221,8 @@ def trace(scene: Scene, ro: Vec3, rd: Vec3, record: bool = False):
 
     t_best = jnp.full(shape, BIG, d.dtype)
     obj_best = jnp.full(shape, -1, jnp.int32)
-    # all-false via comparison, not a bool constant (Mosaic-compatible)
-    sphere_win = t_best < 0
+    sphere_win = jnp.zeros(shape, bool)
     center_best = Vec3.zeros(shape)
-    p1_best = Vec3.zeros(shape)
     cube_n_best = Vec3.zeros(shape)
     albedo_best = Vec3.zeros(shape)
     rough_best = jnp.zeros(shape, d.dtype)
@@ -248,17 +249,6 @@ def trace(scene: Scene, ro: Vec3, rd: Vec3, record: bool = False):
         else:
             sphere_win = sphere_win & ~win
             cube_n_best = Vec3.where(win, n_i, cube_n_best)
-            if record:
-                # the record's p0 is the winner's row origin for BOTH
-                # kinds; center_best is sphere_win-masked in the Hit, so
-                # updating it on cube wins is harmless there
-                center_best = Vec3.where(
-                    win, scene.box_lo(i).broadcast_to(shape), center_best
-                )
-        if record:
-            p1_best = Vec3.where(
-                win, _p1_of(scene, i).broadcast_to(shape), p1_best
-            )
         albedo_best = Vec3.where(win, scene.albedo_of(i).broadcast_to(shape), albedo_best)
         rough_best = jnp.where(win, scene.roughness_of(i), rough_best)
         refl_best = jnp.where(win, scene.reflectance_of(i), refl_best)
@@ -269,7 +259,7 @@ def trace(scene: Scene, ro: Vec3, rd: Vec3, record: bool = False):
     point, normal = _finish_hit(
         hit, t_best, sphere_win, center_best, cube_n_best, ro, d)
 
-    h = Hit(
+    return Hit(
         t=t_best,
         hit=hit,
         obj=obj_best,
@@ -281,79 +271,27 @@ def trace(scene: Scene, ro: Vec3, rd: Vec3, record: bool = False):
         metallic=metal_best,
         emission=emiss_best,
     )
-    if not record:
-        return h
-    rec = TraceRecord(
-        obj=obj_best,
-        hit=hit.astype(d.x.dtype),
-        is_sph=jnp.where(sphere_win, 1.0, 0.0),
-        p0=center_best,
-        p1=p1_best,
-        albedo=albedo_best,
-        roughness=rough_best,
-        reflectance=refl_best,
-        metallic=metal_best,
-        emission=emiss_best,
-    )
-    return h, rec
 
 
-def _p1_of(scene, i) -> Vec3:
-    """Winner row cols 3-5 (radius*/size) for any scene-like object."""
-    hi = scene.box_hi(i)
-    lo = scene.box_lo(i)
-    if scene.is_sphere(i):
-        r = scene.radius(i)
-        return Vec3(r, r, r)
-    return hi - lo
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class TraceRecord:
-    """Per-pixel WINNER data recorded by a non-differentiable trace pass,
-    sufficient to recompute the Hit differentiably (trace_replay) and to
-    route gradients back to object rows (path replay — the large-scene
-    Pallas backward, kernels/megakernel.py). Masks are float 0/1 so the
-    record survives Mosaic fori carries."""
-
-    obj: jax.Array      # int32 winner index; -1 on miss
-    hit: jax.Array      # f32 0/1
-    is_sph: jax.Array   # f32 0/1
-    p0: Vec3            # winner row cols 0-2 (center / box origin)
-    p1: Vec3            # winner row cols 3-5 (radius* / box size)
-    albedo: Vec3
-    roughness: jax.Array
-    reflectance: jax.Array
-    metallic: jax.Array
-    emission: Vec3
-
-
-def _trace_scan(scene, ro: Vec3, rd: Vec3, want_material: bool,
-                record: bool = False):
-    """Large-scene closest hit: lax.scan over packed object rows. The body
+def _trace_scan(scene, ro: Vec3, rd: Vec3, want_material: bool):
+    """Large-scene closest hit: a loop over packed object rows. The body
     computes BOTH primitive tests and selects by the (traced) type tag —
     2x the arithmetic of the specialized loop per object, but compile time
-    and code size are independent of the object count.
-
-    record=True additionally returns the TraceRecord of winner parameters
-    (adds a p1 carry)."""
+    and code size are independent of the object count."""
     d = rd.normalize()
     a = d.dot(d)
     shape = jnp.broadcast_shapes(ro.shape, d.shape)
     ro = ro.broadcast_to(shape)
     # per-ray reciprocals hoisted out of the row loop (see ray_inverses);
-    # d is loop-invariant so both lax.scan and the in-kernel fori close
-    # over them
+    # d is loop-invariant so both loop forms close over them
     inv2a = 0.5 / a
     inv = ray_inverses(d)
 
     rows = scene.packed_rows()  # (N, 16) array or kernel ref; col 15 = type
-    in_kernel = getattr(scene, "in_kernel", False)
 
     def update(carry, get, i):
         """One object's running-min update; `get(c)` reads the row scalar."""
-        (t_best, obj_best, sphere_win, center_best, p1_best, cube_n_best,
+        (t_best, obj_best, sphere_win, center_best, cube_n_best,
          albedo_best, rough_best, refl_best, metal_best, emiss_best) = carry
 
         is_sph = get(15) == float(OBJ_SPHERE)
@@ -366,13 +304,8 @@ def _trace_scan(scene, ro: Vec3, rd: Vec3, want_material: bool,
         win = t_i < t_best
         t_best = jnp.where(win, t_i, t_best)
         obj_best = jnp.where(win, i, obj_best)
-        # float 0/1 mask: Mosaic cannot carry bool arrays through fori_loop
-        sphere_win = jnp.where(win, jnp.where(is_sph, 1.0, 0.0), sphere_win)
+        sphere_win = jnp.where(win, is_sph, sphere_win)
         center_best = Vec3.where(win, center.broadcast_to(shape), center_best)
-        if record:
-            p1_best = Vec3.where(
-                win, Vec3(get(3), get(4), get(5)).broadcast_to(shape), p1_best
-            )
         cube_n_best = Vec3.where(win & ~is_sph, n_c, cube_n_best)
         if want_material:
             albedo_best = Vec3.where(
@@ -384,15 +317,14 @@ def _trace_scan(scene, ro: Vec3, rd: Vec3, want_material: bool,
         emiss_best = Vec3.where(
             win, Vec3(get(12), get(13), get(14)).broadcast_to(shape), emiss_best
         )
-        return (t_best, obj_best, sphere_win, center_best, p1_best, cube_n_best,
+        return (t_best, obj_best, sphere_win, center_best, cube_n_best,
                 albedo_best, rough_best, refl_best, metal_best, emiss_best)
 
     zeros = jnp.zeros(shape, d.dtype)
     init = (
         jnp.full(shape, BIG, d.dtype),
         jnp.full(shape, -1, jnp.int32),
-        zeros,  # sphere_win as float 0/1 (bool carries don't lower)
-        Vec3.zeros(shape),
+        jnp.zeros(shape, bool),
         Vec3.zeros(shape),
         Vec3.zeros(shape),
         Vec3.zeros(shape),
@@ -401,132 +333,37 @@ def _trace_scan(scene, ro: Vec3, rd: Vec3, want_material: bool,
         zeros,
         Vec3.zeros(shape),
     )
-
-    if in_kernel:
-        # Pallas: fori_loop with dynamic SMEM scalar reads (Mosaic can't
-        # lower scans with extensive inputs or dynamic_slice on values).
-        # Forward-only — the Pallas backward records winners here and
-        # differentiates the REPLAY (trace_replay), not this loop.
-        final = jax.lax.fori_loop(
-            0, scene.num_objects,
-            lambda i, c: update(c, lambda col: rows[i, col], i),
-            init,
-        )
-    else:
-        # XLA: scan over packed rows — differentiable w.r.t. scene params.
-        idx = jnp.arange(scene.num_objects, dtype=jnp.int32)
-        final, _ = jax.lax.scan(
-            lambda c, row_i: (update(c, lambda col: row_i[0][col], row_i[1]), None),
-            init,
-            (rows, idx),
-        )
-    (t_best, obj_best, sphere_win, center_best, p1_best, cube_n_best,
+    final = _row_loop(scene, rows, update, init)
+    (t_best, obj_best, sphere_win, center_best, cube_n_best,
      albedo_best, rough_best, refl_best, metal_best, emiss_best) = final
 
     hit = t_best < HIT_THRESHOLD
     point, normal = _finish_hit(
-        hit, t_best, sphere_win > 0.5, center_best, cube_n_best, ro, d)
-
-    h = Hit(
+        hit, t_best, sphere_win, center_best, cube_n_best, ro, d)
+    return Hit(
         t=t_best, hit=hit, obj=obj_best, point=point, normal=normal,
         albedo=albedo_best, roughness=rough_best, reflectance=refl_best,
         metallic=metal_best, emission=emiss_best,
     )
-    if not record:
-        return h
-    rec = TraceRecord(
-        obj=obj_best,
-        hit=hit.astype(d.x.dtype),
-        is_sph=sphere_win,
-        p0=center_best,
-        p1=p1_best,
-        albedo=albedo_best,
-        roughness=rough_best,
-        reflectance=refl_best,
-        metallic=metal_best,
-        emission=emiss_best,
-    )
-    return h, rec
 
 
-def trace_record(scene, ro: Vec3, rd: Vec3):
-    """Non-differentiable closest hit that ALSO returns the winner record
-    for path replay: unrolled running-min for small scenes, packed-row
-    loop above UNROLL_LIMIT (incl. inside Pallas kernels)."""
-    return trace(scene, ro, rd, record=True)
-
-
-def trace_replay(rec: TraceRecord, ro: Vec3, rd: Vec3) -> Hit:
-    """Differentiable Hit recomputed from recorded winner parameters.
-
-    Winner CHOICE (rec.obj / rec.hit / rec.is_sph) is detached path
-    topology; every continuous quantity (t, point, normal, materials) is
-    recomputed from the winner's parameter planes, so reverse mode sees a
-    loop-free function and d(Hit)/d(winner params) equals what autodiff of
-    the full running-min trace produces (the non-winner branches of a
-    where-select carry zero gradient anyway)."""
-    d = rd.normalize()
-    a = d.dot(d)
-    shape = jnp.broadcast_shapes(ro.shape, d.shape)
-    ro = ro.broadcast_to(shape)
-
-    hit = rec.hit > 0.5
-    is_sph = rec.is_sph > 0.5
-
-    t_s = intersect_sphere(ro, d, a, rec.p0, rec.p1.x)
-    t_c, n_c = intersect_cube(ro, d, rec.p0, rec.p0 + rec.p1)
-    t = jnp.where(is_sph, t_s, t_c)
-    t = jnp.where(hit, t, BIG)  # miss pixels carry init-zero params: mask
-
-    point, normal = _finish_hit(hit, t, is_sph, rec.p0, n_c, ro, d)
-
-    return Hit(
-        t=t, hit=hit, obj=rec.obj, point=point, normal=normal,
-        albedo=rec.albedo, roughness=rec.roughness,
-        reflectance=rec.reflectance, metallic=rec.metallic,
-        emission=rec.emission,
-    )
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class ShadowRecord:
-    """Winner data of a shadow trace: occlusion mask (detached) + the
-    nearest object's emission (the only shadow quantity gradients flow
-    through — winner choice is detached in the direct path too)."""
-
-    obj: jax.Array    # int32 winner; -1 on miss
-    hit: jax.Array    # f32 0/1
-    emission: Vec3
-
-
-def trace_shadow_record(scene, ro: Vec3, rd: Vec3):
-    """trace_shadow + ShadowRecord (for path replay): unrolled for small
-    scenes, packed-row loop above UNROLL_LIMIT."""
-    li = _single_emissive_index(scene)
-    if scene.num_objects > UNROLL_LIMIT:
-        if li is not None:
-            hit, emiss, obj = _trace_shadow_occlusion_scan(scene, ro, rd, li)
-            return (hit, emiss), ShadowRecord(
-                obj=obj, hit=hit.astype(jnp.float32), emission=emiss
-            )
-        h, rec = _trace_scan(scene, ro, rd, want_material=False, record=True)
-        return (h.hit, h.emission), ShadowRecord(
-            obj=rec.obj, hit=rec.hit, emission=rec.emission
+def _row_loop(scene, rows, update, init):
+    """Run `update(carry, get, i)` over the packed rows. Inside the kernel
+    (scene.in_kernel) it is a fori loop of scalar reads from the row table;
+    in XLA a lax.scan over the rows, which reverse mode differentiates."""
+    if getattr(scene, "in_kernel", False):
+        return jax.lax.fori_loop(
+            0, scene.num_objects,
+            lambda i, c: update(c, lambda col: rows[i, col], i),
+            init,
         )
-    if li is not None:
-        hit, emiss, obj = _trace_shadow_occlusion(scene, ro, rd, li)
-    else:
-        hit, emiss, obj = _trace_shadow_unrolled(scene, ro, rd, want_obj=True)
-    return (hit, emiss), ShadowRecord(
-        obj=obj, hit=hit.astype(jnp.float32), emission=emiss
+    idx = jnp.arange(scene.num_objects, dtype=jnp.int32)
+    final, _ = jax.lax.scan(
+        lambda c, row_i: (update(c, lambda col: row_i[0][col], row_i[1]), None),
+        init,
+        (rows, idx),
     )
-
-
-def trace_shadow_replay(rec: ShadowRecord):
-    """Differentiable (hit, emission) from a ShadowRecord: emission is the
-    leaf; the occlusion bit is detached."""
-    return rec.hit > 0.5, rec.emission
+    return final
 
 
 def occlude_sphere(ro: Vec3, d: Vec3, a, center: Vec3, radius, at_ref,
@@ -543,8 +380,7 @@ def occlude_sphere(ro: Vec3, d: Vec3, a, center: Vec3, radius, at_ref,
     squares away the sqrt: s0 OP t_ref <=> sqrt(D) inv-OP k - a*t_ref.
     `at_ref = a * t_ref` is hoisted per ray. Boundary lanes may round
     differently from the sqrt+divide formulation (same ulp-level budget
-    as ray_inverses); fwd and bwd share this code path so the stream
-    bit-identity invariant is untouched."""
+    as ray_inverses)."""
     s, ns = _occlude_sphere_masks(ro, d, a, center, radius, at_ref)
     return s if strict else ns
 
@@ -560,7 +396,7 @@ def _occlude_sphere_masks(ro: Vec3, d: Vec3, a, center: Vec3, radius,
     oc = center - ro
     k = oc.dot(d)
     c = oc.norm2() - radius * radius
-    D = k * k - a * c
+    D = _discriminant(oc, d, a, radius)
     valid = D > 0  # discr > 0, scaled by 1/4 (src/scene.c:107)
     w = k - at_ref
     w2 = w * w
@@ -624,7 +460,7 @@ def _trace_shadow_occlusion(scene, ro: Vec3, rd: Vec3, li: int):
                                 inv=inv)
 
     at_ref = a * t_e
-    occluded = None  # no bool-constant seed: Mosaic can't lower i1 consts
+    hit = t_e < HIT_THRESHOLD
     for j in range(scene.num_objects):
         if j == li:
             continue
@@ -637,26 +473,21 @@ def _trace_shadow_occlusion(scene, ro: Vec3, rd: Vec3, li: int):
             t_j, _ = intersect_cube(ro, d, scene.box_lo(j), scene.box_hi(j),
                                     inv=inv)
             occ_j = (t_j < t_e) if strict else (t_j <= t_e)
-        occluded = occ_j if occluded is None else occluded | occ_j
+        hit = hit & ~occ_j
 
-    hit = t_e < HIT_THRESHOLD
-    if occluded is not None:
-        hit = hit & ~occluded
     emiss = Vec3.where(
         hit, scene.emission_of(li).broadcast_to(shape), Vec3.zeros(shape)
     )
-    obj = jnp.where(hit, li, -1).astype(jnp.int32)
-    return hit, emiss, obj
+    return hit, emiss
 
 
 def _trace_shadow_occlusion_scan(scene, ro: Vec3, rd: Vec3, li: int):
     """Large-scene (packed-row loop) variant of _trace_shadow_occlusion:
     same value/gradient contract, but the running state is ONE occlusion
-    plane instead of the 11-plane winner carry of _trace_scan — and the
-    sphere branch uses the sqrt-free occlude_sphere algebra. Row strictness
+    plane instead of the winner carry of _trace_scan — and the sphere
+    branch uses the sqrt-free occlude_sphere algebra. Row strictness
     (first-of-equal-t order) is selected by the traced row index against
-    the static light index. Works as lax.scan (XLA) and fori_loop with
-    SMEM scalar reads (in-kernel), like _trace_scan."""
+    the static light index."""
     d = rd.normalize()
     a = d.dot(d)
     shape = jnp.broadcast_shapes(ro.shape, d.shape)
@@ -665,7 +496,6 @@ def _trace_shadow_occlusion_scan(scene, ro: Vec3, rd: Vec3, li: int):
     inv = ray_inverses(d)
 
     rows = scene.packed_rows()
-    in_kernel = getattr(scene, "in_kernel", False)
 
     # the light's own intersection (static row index, static kind)
     lcenter = Vec3(rows[li, 0], rows[li, 1], rows[li, 2])
@@ -689,39 +519,20 @@ def _trace_shadow_occlusion_scan(scene, ro: Vec3, rd: Vec3, li: int):
         hi = Vec3(get(0) + get(3), get(1) + get(4), get(2) + get(5))
         t_c, _ = intersect_cube(ro, d, center, hi, inv=inv)
 
-        strict = i > li  # scalar: broadcasts over the masks
-        occ_sph = (strict & sph_strict) | (~strict & sph_ns)
-        occ_cub = (strict & (t_c < t_e)) | (~strict & (t_c <= t_e))
-        # and/or blend, NOT jnp.where: a select with i1 (bool) value
-        # operands is 'arith.select' on vector<i1>, which Mosaic fails to
-        # legalize on real TPU (interpret mode accepts it — caught on hw)
-        occ_i = ((is_sph & occ_sph) | (~is_sph & occ_cub)) & (i != li)
-        # float 0/1 carry: Mosaic cannot carry bool arrays through fori
-        return jnp.maximum(occ, occ_i.astype(occ.dtype))
+        strict = i > li
+        occ_sph = jnp.where(strict, sph_strict, sph_ns)
+        occ_cub = jnp.where(strict, t_c < t_e, t_c <= t_e)
+        occ_i = jnp.where(is_sph, occ_sph, occ_cub) & (i != li)
+        return occ | occ_i
 
-    occ0 = jnp.zeros(shape, d.dtype)
-    if in_kernel:
-        occ = jax.lax.fori_loop(
-            0, scene.num_objects,
-            lambda i, c: update(c, lambda col: rows[i, col], i),
-            occ0,
-        )
-    else:
-        idx = jnp.arange(scene.num_objects, dtype=jnp.int32)
-        occ, _ = jax.lax.scan(
-            lambda c, row_i: (update(c, lambda col: row_i[0][col], row_i[1]), None),
-            occ0,
-            (rows, idx),
-        )
-
-    hit = (t_e < HIT_THRESHOLD) & (occ < 0.5)
+    occ = _row_loop(scene, rows, update, jnp.zeros(shape, bool))
+    hit = (t_e < HIT_THRESHOLD) & ~occ
     lemiss = Vec3(rows[li, 12], rows[li, 13], rows[li, 14])
     emiss = Vec3.where(hit, lemiss.broadcast_to(shape), Vec3.zeros(shape))
-    obj = jnp.where(hit, li, -1).astype(jnp.int32)
-    return hit, emiss, obj
+    return hit, emiss
 
 
-def _trace_shadow_unrolled(scene, ro: Vec3, rd: Vec3, want_obj: bool):
+def _trace_shadow_unrolled(scene, ro: Vec3, rd: Vec3):
     d = rd.normalize()
     a = d.dot(d)
     shape = jnp.broadcast_shapes(ro.shape, d.shape)
@@ -731,7 +542,6 @@ def _trace_shadow_unrolled(scene, ro: Vec3, rd: Vec3, want_obj: bool):
 
     t_best = jnp.full(shape, BIG, d.dtype)
     emiss_best = Vec3.zeros(shape)
-    obj_best = jnp.full(shape, -1, jnp.int32)
 
     for i in range(scene.num_objects):
         if scene.is_sphere(i):
@@ -744,14 +554,9 @@ def _trace_shadow_unrolled(scene, ro: Vec3, rd: Vec3, want_obj: bool):
             )
         win = t_i < t_best
         t_best = jnp.where(win, t_i, t_best)
-        if want_obj:
-            obj_best = jnp.where(win, i, obj_best)
         emiss_best = Vec3.where(win, scene.emission_of(i).broadcast_to(shape), emiss_best)
 
-    hit = t_best < HIT_THRESHOLD
-    if want_obj:
-        obj_best = jnp.where(hit, obj_best, -1)
-    return hit, emiss_best, obj_best
+    return t_best < HIT_THRESHOLD, emiss_best
 
 
 def trace_shadow(scene: Scene, ro: Vec3, rd: Vec3):
@@ -765,153 +570,9 @@ def trace_shadow(scene: Scene, ro: Vec3, rd: Vec3):
     li = _single_emissive_index(scene)
     if scene.num_objects > UNROLL_LIMIT:
         if li is not None:
-            hit, emiss, _ = _trace_shadow_occlusion_scan(scene, ro, rd, li)
-            return hit, emiss
+            return _trace_shadow_occlusion_scan(scene, ro, rd, li)
         h = _trace_scan(scene, ro, rd, want_material=False)
         return h.hit, h.emission
     if li is not None:
-        hit, emiss, _ = _trace_shadow_occlusion(scene, ro, rd, li)
-        return hit, emiss
-    hit, emiss, _ = _trace_shadow_unrolled(scene, ro, rd, want_obj=False)
-    return hit, emiss
-
-
-# ---------------------------------------------------------------------------
-# Fetch replay (path replay v2): winner-INDEX records + differentiable
-# one-hot MXU fetch of the scene table
-# ---------------------------------------------------------------------------
-
-
-def fetch_winner_cols(rows, obj):
-    """Differentiable per-pixel gather of packed object rows by winner
-    index: cols[c][p] = rows[obj[p], c], zeros where obj[p] < 0 (miss).
-
-    Forward = a per-object mask-sum (N compares + N*C scalar-fma VPU
-    passes — the exact select cost the running-min trace pays for its
-    winner tracking, minus every intersection test). Backward (custom
-    vjp) = the one-hot MXU segment-sum: flatten obj and the per-column
-    cotangents to (1, P) rows (the Mosaic-supported reshape direction;
-    the inverse unflatten does NOT lower, which is why the forward is not
-    a matmul), build the (N, P) one-hot once, and one dot_general yields
-    the (N, C) row gradients. Both passes are exact: the forward sums a
-    single masked row value per pixel; the backward's one-hot operand is
-    exactly representable so precision=HIGHEST reconstructs f32 products
-    bit-exactly.
-
-    rows: (N, C) f32 table (C <= 16); obj: int32, any 2-D tile shape.
-    Returns a list of C planes of obj's shape; grads flow to `rows`.
-    """
-    n, c = rows.shape
-    # obj rides through the custom_vjp BITCAST to f32: Mosaic cannot lower
-    # a custom_vjp call that closes over tracers (num_consts > 0), and an
-    # int32 argument would demand a float0 cotangent — the bitcast makes
-    # it an ordinary zero-cotangent float input (same trick as the
-    # megakernel's seed scalars).
-    fetch = _make_fetch(n, c)
-    return list(
-        fetch(rows, jax.lax.bitcast_convert_type(obj, jnp.float32))
-    )
-
-
-import functools as _functools
-
-
-@_functools.lru_cache(maxsize=None)
-def _make_fetch(n: int, c: int):
-    @jax.custom_vjp
-    def fetch(rows, obj_bits):
-        obj = jax.lax.bitcast_convert_type(obj_bits, jnp.int32)
-        masks = [(obj == i).astype(rows.dtype) for i in range(n)]
-        cols = []
-        for k in range(c):
-            acc = rows[0, k] * masks[0]
-            for i in range(1, n):
-                acc = acc + rows[i, k] * masks[i]
-            cols.append(acc)
-        return tuple(cols)
-
-    def fwd(rows, obj_bits):
-        return fetch(rows, obj_bits), obj_bits
-
-    def bwd(obj_bits, g):
-        obj = jax.lax.bitcast_convert_type(obj_bits, jnp.int32)
-        p = obj.size
-        o = obj.reshape(1, p)
-        onehot = (
-            jax.lax.broadcasted_iota(jnp.int32, (n, p), 0) == o
-        ).astype(jnp.float32)
-        gmat = jnp.concatenate([gk.reshape(1, p) for gk in g], axis=0)  # (C,P)
-        g_rows = jax.lax.dot_general(
-            onehot, gmat, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )  # (N, C)
-        return g_rows, jnp.zeros_like(obj_bits)
-
-    fetch.defvjp(fwd, bwd)
-    return fetch
-
-
-def trace_replay_fetch(rows, obj, ro: Vec3, rd: Vec3) -> Hit:
-    """Differentiable Hit from a recorded winner-index plane + the packed
-    scene table — the fetch backward's stand-in for trace() (same contract
-    as trace_replay, but the winner parameters come through the one-hot
-    MXU fetch of `rows`, so d(Hit)/d(rows) needs no manual routing).
-
-    Winner CHOICE (obj) is detached path topology; t / point / normal /
-    materials are recomputed from the fetched winner row, matching what
-    autodiff of the full running-min trace produces."""
-    d = rd.normalize()
-    a = d.dot(d)
-    shape = jnp.broadcast_shapes(ro.shape, d.shape)
-    ro = ro.broadcast_to(shape)
-
-    cols = fetch_winner_cols(rows, obj)
-    hit = obj >= 0
-    p0 = Vec3(cols[0], cols[1], cols[2])
-    p1 = Vec3(cols[3], cols[4], cols[5])
-    # col 15 is the type tag (OBJ_SPHERE=1 / OBJ_CUBE=2; 0 on miss):
-    # detached topology, like rec.is_sph in trace_replay
-    is_sph = jax.lax.stop_gradient(cols[15]) == float(OBJ_SPHERE)
-
-    t_s = intersect_sphere(ro, d, a, p0, p1.x)
-    t_c, n_c = intersect_cube(ro, d, p0, p0 + p1)
-    t = jnp.where(is_sph, t_s, t_c)
-    t = jnp.where(hit, t, BIG)  # miss pixels fetched all-zero rows: mask
-
-    point, normal = _finish_hit(hit, t, is_sph, p0, n_c, ro, d)
-
-    return Hit(
-        t=t, hit=hit, obj=obj, point=point, normal=normal,
-        albedo=Vec3(cols[6], cols[7], cols[8]), roughness=cols[9],
-        reflectance=cols[10], metallic=cols[11],
-        emission=Vec3(cols[12], cols[13], cols[14]),
-    )
-
-
-def trace_shadow_replay_fetch(rows, obj, light_index: int | None = None):
-    """Differentiable (hit, emission) from recorded shadow winner indices
-    (ns, th, tw): per-sample one-hot fetch of the emission columns only
-    (the only shadow quantity gradients flow through).
-
-    When the forward recorded through the single-light occlusion path
-    (_trace_shadow_occlusion), every index is `light_index` or -1 — pass
-    it to collapse the N-row fetch to a 1-row fetch of the light's
-    emission (1 mask + 3 fma per sample instead of N + 3N, and the vjp's
-    one-hot matmul shrinks to one row; the slice adjoint routes the
-    gradient back to the full table)."""
-    ns = obj.shape[0]
-    if light_index is not None:
-        erows = rows[light_index:light_index + 1, 12:15]
-        remap = lambda o: jnp.where(o == light_index, 0, -1).astype(jnp.int32)
-    else:
-        erows = rows[:, 12:15]
-        remap = lambda o: o
-    ex, ey, ez = [], [], []
-    for k in range(ns):
-        cols = fetch_winner_cols(erows, remap(obj[k]))
-        ex.append(cols[0])
-        ey.append(cols[1])
-        ez.append(cols[2])
-    emission = Vec3(jnp.stack(ex), jnp.stack(ey), jnp.stack(ez))
-    return obj >= 0, emission
+        return _trace_shadow_occlusion(scene, ro, rd, li)
+    return _trace_shadow_unrolled(scene, ro, rd)

@@ -1,12 +1,12 @@
 """Multi-host bootstrap and mesh construction.
 
 The reference is a single process (SURVEY.md §5: no distributed backend).
-Here, multi-host runs use jax.distributed: one process per host, all chips
-in one global mesh; the (tile, sample) axes from parallel/mesh.py lay out
-so sample-psums and gradient all-reduces ride ICI within a slice, and only
-tile-boundary traffic (none, for independent pixels) would touch DCN.
+Here, multi-host runs use jax.distributed: one process per host, all
+devices in one global mesh; the (tile, sample) axes from parallel/mesh.py
+carry the sample psums and gradient all-reduces, and tile-boundary traffic
+is none (pixels are independent).
 
-Typical pod-slice launch (same script on every host):
+Typical multi-host launch (same script on every host):
 
     python train.py --coordinator=$HOST0:1234 --num-hosts=$N --host-id=$I
 

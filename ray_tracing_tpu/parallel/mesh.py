@@ -1,8 +1,8 @@
 """Device mesh construction for sharded rendering.
 
 The reference's only parallelism is 1 pthread per image column on one host
-(src/main.c:324-414, 695-706). The TPU equivalent (SURVEY.md §2 table) is a
-2-D logical mesh:
+(src/main.c:324-414, 695-706). The device equivalent (SURVEY.md §2 table)
+is a 2-D logical mesh:
 
     "tile"   — data-parallel over pixel tiles (rows of the image), the
                analogue of the reference's column decomposition;
@@ -10,9 +10,11 @@ The reference's only parallelism is 1 pthread per image column on one host
                a psum (the analogue of the weighted accumulation under
                frame_mutex, src/main.c:394-396 — but collective, lock-free).
 
-Gradients in the training step are all-reduced over both axes, riding ICI
-within a slice and DCN across hosts (jax.distributed handles process
-bootstrap; the mesh API is identical either way).
+Gradients in the training step are all-reduced over both axes; on GPUs
+XLA hands the psums to NCCL, over NVLink within a host (jax.distributed
+handles multi-host bootstrap; the mesh API is identical either way). The
+cards of one host are joined all to all, so the mesh shape follows the
+algorithm alone.
 """
 
 from __future__ import annotations

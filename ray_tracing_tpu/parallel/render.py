@@ -45,10 +45,10 @@ def _local_tile_render(
     """Render this device's row-slice of the image, summing its local
     samples. Runs inside shard_map.
 
-    kernel: "xla" (render_rays bounce scan), "pallas" (the megakernel — the
-    TPU fast path, kernels/megakernel.py, with this device's global row
-    offset), or "pallas_interpret" (Pallas interpreter, CPU-testable,
-    forward only).
+    kernel: "xla" (render_rays bounce scan), "pallas" (the forward
+    megakernel, kernels/megakernel.py, with this device's global row
+    offset), or "pallas_interpret" (the same kernel in the Pallas
+    interpreter, for CPU tests).
 
     sky_cache / return_sky_cache thread this device's sparse sky cache
     across calls (megakernel.render_image_pallas semantics — exact for
@@ -67,19 +67,12 @@ def _local_tile_render(
     if kernel in ("pallas", "pallas_interpret"):
         from ray_tracing_tpu.kernels.megakernel import render_image_pallas
 
-        # The megakernel's streams come from the hardware PRNG: derive this
-        # device's int32 seed from its folded key.
+        # The megakernel's streams hash an int32 seed: derive this device's
+        # seed from its folded key.
         seed = jax.random.randint(
             key, (), 0, jnp.iinfo(jnp.int32).max, dtype=jnp.int32
         )
-        if kernel == "pallas_interpret":
-            # Mosaic TPU interpreter (not the HLO one — only it implements
-            # the hardware PRNG primitives on CPU)
-            from jax.experimental.pallas import tpu as pltpu
-
-            interpret = pltpu.InterpretParams()
-        else:
-            interpret = False
+        interpret = kernel == "pallas_interpret"
         img = render_image_pallas(
             scene, camera, width, local_h, seed, spp=local_spp,
             config=config, cubemap=cubemap,
@@ -134,16 +127,28 @@ def _local_tile_render(
 KERNELS = ("auto", "pallas", "pallas_interpret", "xla")
 
 
-def resolve_kernel(kernel: str, mesh) -> str:
-    """"auto" -> "pallas" on TPU meshes, "xla" elsewhere (Mosaic kernels
-    only compile for TPU; CPU meshes are the test/dryrun environment).
-    Unknown names raise — a silent fall-through to the XLA slow path
-    would report slow-path numbers under a typo'd kernel flag."""
+def resolve_kernel(kernel: str, mesh=None) -> str:
+    """The one place the forward kernel is chosen, for the devices of
+    `mesh` (default: JAX's first device). "auto" -> "pallas" (the
+    megakernel) on GPUs and "xla" on CPUs. "pallas" compiles only for a
+    GPU and "pallas_interpret" (tests, dryruns) runs only on a CPU; asking
+    for either elsewhere raises, as do unknown names — a silent fallback
+    would report one path's numbers under another's name."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
+    device = (next(iter(mesh.devices.flat)) if mesh is not None
+              else jax.devices()[0])
+    platform = device.platform
     if kernel == "auto":
-        platform = next(iter(mesh.devices.flat)).platform
-        return "pallas" if platform == "tpu" else "xla"
+        return "pallas" if platform == "gpu" else "xla"
+    if kernel == "pallas" and platform != "gpu":
+        raise ValueError(
+            f"kernel 'pallas' compiles for a GPU; this device is {platform!r} "
+            "(use 'pallas_interpret' on a CPU, or 'auto')")
+    if kernel == "pallas_interpret" and platform != "cpu":
+        raise ValueError(
+            f"kernel 'pallas_interpret' runs on a CPU only; this device is "
+            f"{platform!r} (use 'pallas' or 'auto')")
     return kernel
 
 
@@ -164,9 +169,8 @@ def render_image_sharded(
     """Full-frame render sharded over (tile, sample). Returns (H, W, 3)
     with rows sharded over the tile axis.
 
-    kernel: "auto" (megakernel on TPU meshes, XLA elsewhere), "pallas",
-    "pallas_interpret", or "xla" — the BASELINE north star is the Pallas
-    megakernel scaling over sharded tiles and samples, not the slow path.
+    kernel: "auto", "pallas", "pallas_interpret" or "xla", resolved for
+    the mesh's devices by resolve_kernel.
 
     Requires height % n_tiles == 0 and spp % n_samples == 0 (pad upstream —
     unlike the reference, which silently never renders the rightmost

@@ -124,9 +124,12 @@ def render_pass_pallas(
     spp: int = 1,
     sky_cache=None,
     return_sky_cache: bool = False,
+    interpret: bool = False,
 ):
-    """render_pass on the Pallas megakernel (TPU fast path for the
-    interactive viewer). Same accumulation semantics, hardware PRNG.
+    """render_pass on the forward megakernel (the GPU path of the
+    interactive viewer and server). Same accumulation semantics, the
+    kernel's counter-based streams; interpret=True runs the kernel in the
+    Pallas interpreter (CPU).
 
     spp > 1 accumulates several samples in ONE device call with weight
     spp/scale^2 — statistically identical to spp single-sample passes,
@@ -150,7 +153,7 @@ def render_pass_pallas(
     # divisible by the scale
     img = render_image_pallas(
         scene, camera, lw, lh, seed, spp=spp, config=config, cubemap=cubemap,
-        aspect=width / height,
+        aspect=width / height, interpret=interpret,
         sky_cache=sky_cache, return_sky_cache=return_sky_cache,
     )
     if return_sky_cache:

@@ -3,8 +3,8 @@
 Re-expresses the reference's per-pixel recursive estimator
 (``pixel()``, src/main.c:131-272) as a fixed-length `lax.scan` over bounces
 with an active-ray mask, fully vectorized over SoA pixel batches: no
-data-dependent control flow, static shapes, a handful of full-width VPU
-passes per bounce. Semantics are faithful to the reference modulo RNG
+data-dependent control flow, static shapes, a handful of full-width
+elementwise passes per bounce. Semantics are faithful to the reference modulo RNG
 streams (SURVEY.md §2 path-tracer row):
 
   * <= 10 bounces, early exit on miss -> masked-out lanes (src/main.c:156-173)

@@ -31,6 +31,7 @@ Reference quirks preserved deliberately:
 
 from __future__ import annotations
 
+import pathlib
 import sys
 
 from ray_tracing_tpu.scene.types import ObjectSpec, Scene
@@ -253,3 +254,16 @@ def parse_scene_string(src: str) -> Scene:
 def parse_scene_file(path: str) -> Scene:
     with open(path, "r") as f:
         return parse_scene_string(f.read())
+
+
+# Scene files kept with the repository (scenes/ at the checkout root).
+SCENES_DIR = pathlib.Path(__file__).resolve().parents[2] / "scenes"
+
+
+def scene_file(name: str) -> str:
+    """Path of an in-repo scene: "scene_2" (three mirror/metal spheres) or
+    "room" (a single-light diffuse room, so NEE and the shadow trace run)."""
+    path = SCENES_DIR / f"{name}.txt"
+    if not path.exists():
+        raise FileNotFoundError(f"no in-repo scene {name!r} ({path})")
+    return str(path)

@@ -2,7 +2,7 @@
 
 The reference stores an array-of-structs ``Object objects[1024]`` with a
 tagged union of Sphere/Cube plus a Material (src/scene.h:5-43). The
-TPU-native scene is the transpose: one array per field, so intersection
+device scene is the transpose: one array per field, so intersection
 tests vectorize over pixels with the object loop unrolled — and the object
 *kinds* are static pytree metadata, so jit specializes the closest-hit loop
 per topology (sphere code for spheres, AABB code for cubes, no runtime tag
@@ -254,3 +254,27 @@ jax.tree_util.register_dataclass(
     ],
     meta_fields=["obj_type", "light_index", "emissive"],
 )
+
+
+def random_scene(num: int, seed: int = 0, light: int = 7) -> Scene:
+    """Seeded synthetic scene of `num` objects in [-6, 6]^3: every third a
+    cube, the rest spheres, object `light` (if < num) the one emitter.
+    Sizes past ops/intersect.UNROLL_LIMIT exercise the packed-row trace."""
+    rng = np.random.default_rng(seed)
+    objs = []
+    for i in range(num):
+        if i % 3 == 0:
+            objs.append(ObjectSpec(
+                kind="cube", p0=tuple(rng.uniform(-6, 6, 3)),
+                p1=tuple(rng.uniform(0.5, 2.0, 3)),
+                albedo=tuple(rng.uniform(0.2, 1, 3)),
+                roughness=float(rng.uniform())))
+        else:
+            objs.append(ObjectSpec(
+                kind="sphere", p0=tuple(rng.uniform(-6, 6, 3)),
+                p1=(float(rng.uniform(0.4, 1.2)),) * 3,
+                albedo=tuple(rng.uniform(0.2, 1, 3)),
+                roughness=float(rng.uniform()),
+                reflectance=float(rng.uniform()),
+                emission_power=2.0 if i == light else 0.0))
+    return Scene.from_objects(objs)

@@ -4,7 +4,7 @@ Hand-written from the behavioral description in SURVEY.md (not copied
 code): quadratic sphere solve (src/scene.c:79-134), slab AABB with axis
 normals (src/scene.c:17-77), closest-hit scan (src/scene.c:156-190),
 cubemap face/uv/nearest rules (src/gpu_and_windowing.c:42-112), camera ray
-(src/camera.c:95-125). Used to cross-check the vectorized TPU ops on random
+(src/camera.c:95-125). Used to cross-check the vectorized JAX ops on random
 inputs.
 """
 

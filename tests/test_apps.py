@@ -403,9 +403,9 @@ def test_poll_events_x10_payload_split_across_reads(monkeypatch):
 def test_cli_pallas_render_fn_cache_contract(monkeypatch):
     """cli.make_pallas_render_fn drives the Viewer's cache-aware contract:
     pyramid passes pass the cache through untouched, full-res passes seed
-    and thread it, invalidation drops it. The megakernel is TPU-only, so
-    render_pass_pallas is replaced by a traceable stand-in (its real
-    cache semantics are pinned in test_megakernel.py)."""
+    and thread it, invalidation drops it. render_pass_pallas is replaced
+    by a traceable stand-in (its real cache semantics are pinned in
+    test_megakernel.py)."""
     import jax.numpy as jnp
 
     from ray_tracing_tpu.apps.cli import make_pallas_render_fn
@@ -416,7 +416,7 @@ def test_cli_pallas_render_fn_cache_contract(monkeypatch):
 
     def fake_render_pass_pallas(scene, camera, film, seed, scale, config,
                                 cubemap, spp=1, sky_cache=None,
-                                return_sky_cache=False):
+                                return_sky_cache=False, interpret=False):
         assert return_sky_cache
         calls.append((scale, spp, sky_cache is not None))
         out = render_pass(scene, camera, film, jax.random.key(0), scale,

@@ -1,86 +1,42 @@
-"""Roofline cost-model invariants (utils/flops.py).
+"""FLOP census invariants (utils/flops.py): the counted cost of the
+forward kernel's physics follows the scene's topology and the loop
+lengths it is traced with."""
 
-The MFU numerator for the fetch backward is `counted vjp flops - modeled
-fetch-dot flops`; a wrong dot model (round-3 self-review: the replay
-routing model priced every shadow record as a 6-pass (N,16) matmul,
-~20x the real cost) clamps the numerator to zero and silently destroys
-the reported bwd MFU. These tests pin the model to XLA's own counting
-conventions so it cannot drift that way again.
-"""
-
-import os
+import dataclasses
 
 import pytest
 
-pytestmark = pytest.mark.skipif(
-    not os.path.exists("/root/reference/scene_0.txt"),
-    reason="reference scenes not present",
-)
+from ray_tracing_tpu import RenderConfig
+from ray_tracing_tpu.scene.parser import parse_scene_file, scene_file
+from ray_tracing_tpu.utils import flops as F
 
 
-@pytest.fixture(scope="module")
-def cpu():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    return jax
-
-
-def test_fetch_mxu_model_fits_inside_counted_vjp(cpu):
-    """The modeled fetch-dot flops must be a PROPER share of the counted
-    vjp graph: positive (the dots are in the graph) and strictly below
-    the total (subtracting must leave a positive VPU numerator)."""
-    from ray_tracing_tpu import RenderConfig
-    from ray_tracing_tpu.scene.parser import parse_scene_file
-    from ray_tracing_tpu.utils import flops as F
-
-    # smaller physics than the default keeps the CPU compile cheap; the
-    # share property is config-independent
-    cfg = RenderConfig(bounces=3, shadow_samples=2)
-    for name in ("scene_0", "scene_2"):
-        scene = parse_scene_file(f"/root/reference/{name}.txt")
-        vjp = F.fetch_vjp_cost_per_pixel(scene, cfg)["flops_per_px"]
-        mxu = F.fetch_mxu_flops_per_pixel(scene, cfg)
-        assert 0 < mxu < vjp, (name, mxu, vjp)
-        # the TPU MXU-time convention is exactly the 6-pass scaling
-        assert F.fetch_mxu_flops_per_pixel(scene, cfg, passes=6) == 6 * mxu
-
-
-def test_xla_cpu_cost_analysis_prices_dots_at_one_pass(cpu):
-    """fetch_mxu_flops_per_pixel's default passes=1 is justified by XLA
-    pricing a dot at 2*M*N*K regardless of precision=HIGHEST; if a jax
-    upgrade changes that, the subtraction convention must be revisited."""
-    import jax
-    import jax.numpy as jnp
-
-    a, b = jnp.ones((9, 1024)), jnp.ones((16, 1024))
-
-    def cost(f):
-        c = jax.jit(f).lower(a, b).compile().cost_analysis()
-        if isinstance(c, (list, tuple)):
-            c = c[0]
-        return float(c.get("flops", 0.0))
-
-    dn = (((1,), (1,)), ((), ()))
-    highest = cost(lambda a, b: jax.lax.dot_general(
-        a, b, dn, precision=jax.lax.Precision.HIGHEST))
-    default = cost(lambda a, b: jax.lax.dot_general(a, b, dn))
-    assert highest == default == 2 * 9 * 16 * 1024
-
-
-def test_physics_cost_tracks_occlusion_shadow_path(cpu):
+def test_physics_cost_tracks_occlusion_shadow_path():
     """physics_cost_per_pixel keys on Scene.emissive: the occlusion
     shadow path (1-plane trace) must be priced cheaper than the exact
     full scan the emissive=None opt-out runs."""
-    import dataclasses
-
-    from ray_tracing_tpu import RenderConfig
-    from ray_tracing_tpu.scene.parser import parse_scene_file
-    from ray_tracing_tpu.utils import flops as F
-
     cfg = RenderConfig(bounces=3, shadow_samples=2)
-    scene = parse_scene_file("/root/reference/scene_0.txt")
+    scene = parse_scene_file(scene_file("room"))
     occl = F.physics_cost_per_pixel(scene, cfg)["flops_per_px"]
     exact = F.physics_cost_per_pixel(
         dataclasses.replace(scene, emissive=None), cfg)["flops_per_px"]
     assert occl < exact, (occl, exact)
+
+
+def test_physics_cost_counts_every_bounce_and_shadow_ray():
+    """The census walks the bounce loop's scan `bounces` times, and NEE
+    adds per-shadow-sample work: doubling bounces roughly doubles the
+    cost, and shadow_samples=0 (NEE off) costs less than 2."""
+    scene = parse_scene_file(scene_file("room"))
+    c2 = F.physics_cost_per_pixel(scene, RenderConfig(bounces=2))
+    c4 = F.physics_cost_per_pixel(scene, RenderConfig(bounces=4))
+    assert c4["flops_per_px"] == pytest.approx(2 * c2["flops_per_px"], rel=0.1)
+    assert c2["transcendentals_per_px"] > 0
+    off = F.physics_cost_per_pixel(
+        scene, RenderConfig(bounces=2, shadow_samples=0))["flops_per_px"]
+    assert off < c2["flops_per_px"]
+
+
+def test_rays_per_sample_model():
+    cfg = RenderConfig()
+    assert F.rays_per_sample(4, 2, cfg) == 4 * 2 * 10 * 4

@@ -64,6 +64,14 @@ def test_sharded_xla_pixel_jitter_is_applied():
     assert abs(aa.mean() - base.mean()) < 0.02
 
 
+class _FakeMesh:
+    """Just enough of a Mesh for resolve_kernel: devices of one platform."""
+
+    def __init__(self, platform):
+        dev = type("Dev", (), {"platform": platform})()
+        self.devices = np.array([dev], dtype=object)
+
+
 def test_resolve_kernel_rejects_unknown_names():
     import pytest as _pytest
 
@@ -73,6 +81,30 @@ def test_resolve_kernel_rejects_unknown_names():
     with _pytest.raises(ValueError, match="unknown kernel"):
         resolve_kernel("palas", mesh)
     assert resolve_kernel("xla", mesh) == "xla"
+
+
+@pytest.mark.parametrize("kernel,platform,want", [
+    ("auto", "gpu", "pallas"),
+    ("auto", "cpu", "xla"),
+    ("pallas", "gpu", "pallas"),
+    ("xla", "gpu", "xla"),
+    ("pallas_interpret", "cpu", "pallas_interpret"),
+])
+def test_resolve_kernel_choice(kernel, platform, want):
+    from ray_tracing_tpu.parallel.render import resolve_kernel
+
+    assert resolve_kernel(kernel, _FakeMesh(platform)) == want
+
+
+@pytest.mark.parametrize("kernel,platform", [
+    ("pallas", "cpu"),              # the compiled kernel needs a GPU
+    ("pallas_interpret", "gpu"),    # interpret mode is for CPU tests only
+])
+def test_resolve_kernel_refuses_wrong_device(kernel, platform):
+    from ray_tracing_tpu.parallel.render import resolve_kernel
+
+    with pytest.raises(ValueError, match=kernel):
+        resolve_kernel(kernel, _FakeMesh(platform))
 
 
 def test_sharded_degenerate_single_column_is_finite():
@@ -104,8 +136,8 @@ def test_sharded_matches_single_device_statistically():
 def test_sharded_skybox_matches_single_device():
     """The packed-uint32 skybox path (real texel-index gathers, the
     reference's always-on workload, src/main.c:500-508) under shard_map on
-    the 4x2 mesh must agree with the single-device render (VERDICT r2
-    missing #2: the sharded path must exercise a real cubemap off-TPU)."""
+    the 4x2 mesh must agree with the single-device render: the sharded
+    path must exercise a real cubemap on the CPU mesh too."""
     from ray_tracing_tpu.ops.cubemap import checker_sky
 
     sky = checker_sky(64)
@@ -204,8 +236,6 @@ def test_dryrun_multichip_entrypoint():
 
 def _expected_pallas_rows(s, cam, width, height, mesh, spp, key, config, sky):
     """Mirror _local_tile_render's pallas branch per device, unsharded."""
-    from jax.experimental.pallas import tpu as pltpu
-
     from ray_tracing_tpu.kernels.megakernel import render_image_pallas
 
     n_tiles = mesh.shape["tile"]
@@ -224,17 +254,13 @@ def _expected_pallas_rows(s, cam, width, height, mesh, spp, key, config, sky):
                 s, cam, width, local_h, seed, spp=local_spp,
                 config=config, cubemap=sky,
                 row0=t * local_h, norm_height=height, aspect=width / height,
-                interpret=pltpu.InterpretParams(),
+                interpret=True,
             )
             acc += np.asarray(img) * local_spp
         out[t * local_h:(t + 1) * local_h] = acc / spp
     return out
 
 
-@pytest.mark.skipif(
-    __import__("os").environ.get("RTT_SLOW") != "1",
-    reason="Pallas interpreter compiles are minutes-slow on CPU; RTT_SLOW=1",
-)
 def test_sharded_pallas_interpret_bit_exact():
     """render_image_sharded(kernel='pallas_interpret') must equal the
     manual per-device row-slice composition bit-for-bit: the row0/
@@ -262,15 +288,11 @@ def test_sharded_pallas_interpret_bit_exact():
     assert abs(got.mean() - xla.mean()) < 0.05
 
 
-@pytest.mark.skipif(
-    __import__("os").environ.get("RTT_SLOW") != "1",
-    reason="Pallas interpreter compiles are minutes-slow on CPU; RTT_SLOW=1",
-)
 def test_sharded_pallas_interpret_skybox_sparse_bit_exact():
     """The megakernel + packed skybox + SPARSE sky cache (spp>1 activates
     ops/cubemap.sparse_sky_lookup) under shard_map must equal the manual
-    per-device composition bit-for-bit — the perf centerpiece composed
-    with sharding, runnable off-TPU (VERDICT r2 missing #2)."""
+    per-device composition bit-for-bit — the kernel composed with
+    sharding, through the interpreter on the CPU mesh."""
     from ray_tracing_tpu.ops.cubemap import checker_sky
 
     cfg = RenderConfig(bounces=2, shadow_samples=1)
@@ -293,88 +315,11 @@ def test_resolve_kernel_auto_cpu():
 
     mesh = make_mesh(4, 2)
     assert resolve_kernel("auto", mesh) == "xla"  # CPU virtual mesh
-    assert resolve_kernel("pallas", mesh) == "pallas"
+    assert resolve_kernel("pallas_interpret", mesh) == "pallas_interpret"
     assert resolve_kernel("xla", mesh) == "xla"
+    assert resolve_kernel("auto") == "xla"        # default: jax.devices()[0]
 
 
-def test_train_step_sky_cache_mode_threads_per_device_cache(monkeypatch):
-    """sky_cache_mode=True: step(params, opt, target, key, sky_cache) ->
-    (params, opt, loss, sky_cache), where the cache is per-(tile, sample)
-    device state stacked over BOTH mesh axes and sliced back identically
-    on the next step. The megakernel is TPU-only, so it's replaced by a
-    traceable, differentiable stand-in whose cache plane counts how many
-    times it round-tripped (the real kernel's cache semantics are pinned
-    in test_megakernel.py::test_sky_cache_threading_bit_identical)."""
-    from ray_tracing_tpu.diff.inverse import extract_params
-    from ray_tracing_tpu.kernels import megakernel as mk
-
-    W, H = 16, 16
-    n_tiles, n_samples = 4, 2
-    local_h = H // n_tiles
-
-    def fake_render_image_pallas(scene, camera, width, height, seed, spp=1,
-                                 config=None, cubemap=None, row0=0,
-                                 norm_height=None, aspect=None,
-                                 interpret=False, sky_cache=None,
-                                 return_sky_cache=False):
-        # differentiable in scene params; per-device cache marker plane
-        img = jnp.broadcast_to(
-            jnp.mean(scene.p0) / 10.0, (height, width, 3)
-        ).astype(jnp.float32)
-        prev = sky_cache[0] if sky_cache is not None else jnp.zeros(
-            (height, width), jnp.int32
-        )
-        cache = (prev + 1,)
-        return (img, cache) if return_sky_cache else img
-
-    monkeypatch.setattr(mk, "render_image_pallas", fake_render_image_pallas)
-
-    scene = Scene.from_objects([
-        ObjectSpec(kind="sphere", p0=(3.0, 3.0, 3.0), p1=(1.0,) * 3),
-    ])
-    mesh = make_mesh(n_tiles, n_samples)
-    params = {"scene": extract_params(scene, ("p0",)), "camera": {}}
-    opt = optax.adam(1e-2)
-    opt_state = opt.init(params)
-    target = jnp.zeros((H, W, 3), jnp.float32)
-
-    step = make_train_step(scene, Camera.default(), mesh, opt, W, H,
-                           spp=2 * n_samples, config=CFG, cubemap=SKY,
-                           kernel="pallas", sky_cache_mode=True)
-
-    params, opt_state, loss, cache = step(params, opt_state, target,
-                                          jax.random.key(0))
-    assert jnp.isfinite(loss)
-    # stacked over both axes: (n_tiles * n_samples * local_h, W)
-    assert cache[0].shape == (n_tiles * n_samples * local_h, W)
-    assert int(cache[0].min()) == 1 and int(cache[0].max()) == 1
-
-    # threading: every device receives ITS OWN cache back (marker -> 2)
-    params, opt_state, loss, cache = step(params, opt_state, target,
-                                          jax.random.key(1), cache)
-    assert int(cache[0].min()) == 2 and int(cache[0].max()) == 2
-
-    # reseed: None seeds fresh (marker back to 1)
-    params, opt_state, loss, cache = step(params, opt_state, target,
-                                          jax.random.key(2), None)
-    assert int(cache[0].max()) == 1
-
-    # params actually moved (gradients flowed through the stand-in)
-    assert not np.allclose(np.asarray(params["scene"]["p0"]),
-                           np.asarray(scene.p0))
-
-    # default mode unchanged: 3-tuple, no cache anywhere
-    step3 = make_train_step(scene, Camera.default(), mesh, opt, W, H,
-                            spp=2 * n_samples, config=CFG, cubemap=SKY,
-                            kernel="pallas")
-    out = step3(params, opt_state, target, jax.random.key(3))
-    assert len(out) == 3
-
-
-@pytest.mark.skipif(
-    __import__("os").environ.get("RTT_SLOW") != "1",
-    reason="Pallas interpreter compiles are minutes-slow on CPU; RTT_SLOW=1",
-)
 def test_sharded_sky_cache_threading_bit_identical():
     """render_image_sharded's sky-cache threading, END-TO-END through the
     interpret kernel on the 4x2 CPU mesh: a frame fed the previous

@@ -266,21 +266,18 @@ def test_pose_recovery_ground_truth_vs_c_oracle(tmp_path):
 @pytest.mark.skipif(os.environ.get("RTT_SLOW") != "1",
                     reason="four CPU renders; RTT_SLOW=1")
 def test_screenshot_agreement_bounds():
-    """Pins the round-5 screenshot-agreement result (VERDICT r04 #2, the
-    BASELINE north-star image-agreement line): at the poses recovered on
-    hardware by benchmarks/screenshot_agreement.py (+ --polish and the
-    640x480 refinement stage), a render must stay correlated with the
+    """Pins the screenshot-agreement result (the BASELINE north-star
+    image-agreement line): at the poses pinned below (recovered by pose
+    search + Adam refinement), a render must stay correlated with the
     reference's own screenshots (assets/screenshot_0..3.png,
     README.md:25-29) above measured floors.
 
     Protocol: 160x120, spp=4, bounces=3, bilinear sky (the fit protocol —
     CPU-tractable); measured correlations at the pinned poses were
     0.677 / 0.653 / 0.649 / 0.875, floors leave ~0.03-0.05 MC margin.
-    Full-res converged numbers (1280x960, 192 spp, full physics, TPU):
-    corr 0.667 / 0.664 / 0.653 / 0.874 — BENCH_NOTES round 5 records the
-    protocol and why the scene_0/1 shots cap near 0.66 (pose-estimation
-    residual under a sky-dominated MSE; position gradients are
-    parallax-weak — see test_pose_recovery_ground_truth_vs_c_oracle)."""
+    The scene_0/1 shots cap near 0.66 (pose-estimation residual under a
+    sky-dominated MSE; position gradients are parallax-weak — see
+    test_pose_recovery_ground_truth_vs_c_oracle)."""
     import dataclasses
 
     from PIL import Image

@@ -164,3 +164,19 @@ def test_scene_is_pytree(scene2_text):
     # topology semantics
     n = jax.jit(lambda s: s.p0.sum())(scene)
     assert n.shape == ()
+
+
+def test_in_repo_scenes():
+    """scenes/ holds scene_2 (three spheres, no light: NEE off) and the
+    single-light room (cubes + spheres, one emitter: NEE and the
+    occlusion shadow path run)."""
+    from ray_tracing_tpu.scene.parser import parse_scene_file, scene_file
+
+    s2 = parse_scene_file(scene_file("scene_2"))
+    assert s2.obj_type == (OBJ_SPHERE,) * 3 and s2.light_index == -1
+    np.testing.assert_allclose(np.asarray(s2.p0)[:, 0], [-3, 0, 3])
+    room = parse_scene_file(scene_file("room"))
+    assert OBJ_CUBE in room.obj_type and OBJ_SPHERE in room.obj_type
+    assert sum(room.emissive) == 1 and room.emissive[room.light_index]
+    with pytest.raises(FileNotFoundError):
+        scene_file("no_such_scene")

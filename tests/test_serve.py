@@ -25,7 +25,7 @@ def server():
     ])
     cfg = RenderConfig(bounces=2, shadow_samples=1, init_scale=4)
     svc = RenderService(scene, 32, 24, cfg, constant_sky((0.4, 0.5, 0.6)),
-                        use_pallas=False)
+                        kernel="xla")
     t = threading.Thread(target=svc.run, daemon=True)
     t.start()
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
@@ -136,7 +136,7 @@ def test_film_checkpoint_resume(tmp_path):
     ck = str(tmp_path / "film")
 
     svc = RenderService(scene, 24, 16, cfg, constant_sky((0.4, 0.5, 0.6)),
-                        use_pallas=False, film_checkpoint=ck,
+                        kernel="xla", film_checkpoint=ck,
                         film_checkpoint_every=4)
     t = threading.Thread(target=svc.run, daemon=True)
     t.start()
@@ -153,14 +153,14 @@ def test_film_checkpoint_resume(tmp_path):
     pose0 = svc.camera.pos
 
     svc2 = RenderService(scene, 24, 16, cfg, constant_sky((0.4, 0.5, 0.6)),
-                         use_pallas=False, film_checkpoint=ck)
+                         kernel="xla", film_checkpoint=ck)
     assert float(svc2.film.weight) == pytest.approx(w0)
     np.testing.assert_allclose(np.asarray(svc2.camera.pos), np.asarray(pose0))
     assert svc2.passes_done > 0
 
     # a resolution change falls back to a fresh film, not a crash
     svc3 = RenderService(scene, 32, 24, cfg, constant_sky((0.4, 0.5, 0.6)),
-                         use_pallas=False, film_checkpoint=ck)
+                         kernel="xla", film_checkpoint=ck)
     assert float(svc3.film.weight) == 0.0
 
     # a different SCENE with the same checkpoint dir must not blend the
@@ -169,7 +169,7 @@ def test_film_checkpoint_resume(tmp_path):
         ObjectSpec(kind="sphere", p0=(-3.0, 3.0, 3.0), p1=(1.0,) * 3),
     ])
     svc4 = RenderService(scene_b, 24, 16, cfg, constant_sky((0.4, 0.5, 0.6)),
-                         use_pallas=False, film_checkpoint=ck)
+                         kernel="xla", film_checkpoint=ck)
     assert float(svc4.film.weight) == 0.0
 
     # ... and so must a different physics CONFIG
@@ -177,22 +177,22 @@ def test_film_checkpoint_resume(tmp_path):
                          RenderConfig(bounces=2, shadow_samples=1,
                                       init_scale=2),
                          constant_sky((0.4, 0.5, 0.6)),
-                         use_pallas=False, film_checkpoint=ck)
+                         kernel="xla", film_checkpoint=ck)
     assert float(svc5.film.weight) == 0.0
 
     # ... and a different SKY (the film's radiance depends on it)
     svc6 = RenderService(scene, 24, 16, cfg, constant_sky((0.9, 0.1, 0.1)),
-                         use_pallas=False, film_checkpoint=ck)
+                         kernel="xla", film_checkpoint=ck)
     assert float(svc6.film.weight) == 0.0
 
 
 def test_pallas_pass_threads_sky_cache(monkeypatch):
-    """The use_pallas _pass closure threads the cross-pass sky cache:
+    """The kernel _pass closure threads the cross-pass sky cache:
     full-res passes feed the previous cache in and store the returned
     one; pyramid passes never touch it; invalidate() drops it. The
-    megakernel itself is TPU-only, so the plumbing is validated against
-    a traceable stand-in for render_pass_pallas (the real kernel's
-    cache semantics are pinned bit-exactly in test_megakernel.py::
+    plumbing is validated against a traceable stand-in for
+    render_pass_pallas (the real kernel's cache semantics are pinned
+    bit-exactly in test_megakernel.py::
     test_sky_cache_threading_bit_identical)."""
     import jax.numpy as jnp
 
@@ -203,8 +203,8 @@ def test_pallas_pass_threads_sky_cache(monkeypatch):
 
     def fake_render_pass_pallas(scene, camera, film, seed, scale, config,
                                 cubemap, spp=1, sky_cache=None,
-                                return_sky_cache=False):
-        assert return_sky_cache
+                                return_sky_cache=False, interpret=False):
+        assert return_sky_cache and interpret
         seen.append((scale, sky_cache is not None))
         out = render_pass(scene, camera, film, jax.random.key(0), scale,
                           config, cubemap)
@@ -219,7 +219,7 @@ def test_pallas_pass_threads_sky_cache(monkeypatch):
     ])
     cfg = RenderConfig(bounces=2, shadow_samples=1, init_scale=2)
     svc = RenderService(scene, 32, 24, cfg, constant_sky((0.4, 0.5, 0.6)),
-                        use_pallas=True)
+                        kernel="pallas_interpret")
 
     key = jax.random.key(1)
     svc.film = svc._pass(key, 2)      # pyramid pass: no cache involved
